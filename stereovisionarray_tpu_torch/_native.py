@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files compile, with nvcc and a plain C interface, into one
-shared library under ``build/`` (listed in ``.gitignore``) at first use, and
-again whenever a source is newer than the library. The library is loaded with
+All ``csrc/*.cu`` files compile, with nvcc and a plain C interface (one nvcc
+per file, in parallel), into one shared library under ``build/`` (listed in
+``.gitignore``) at first use, and again whenever a source is newer than the
+library. The library is loaded with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, and every entry
 point returns ``cudaGetLastError()``, which :func:`launch` turns into an
 exception. Nothing here runs at import time; the CPU tests import every module
@@ -31,7 +32,7 @@ LIB_PATH = BUILD_DIR / "libsvt_kernels.so"
 # no --use_fast_math for the same reason (IEEE division, no flush to zero).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "svt_extract_maps": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     # disp_l, disp_r, at, h, w, n_disp, stream
     "svt_lr_gather": (_P, _P, _P, _I, _I, _I, _P),
+    # ref, src, shifts, fused, nviews, n_src, h, w, n_planes, patch, mode, topk, stream
+    "svt_plane_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -77,25 +80,34 @@ def is_stale() -> bool:
     return any(src.stat().st_mtime > built for src in sources())
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with nvcc's output on any failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(force: bool = False) -> None:
     """Compile ``csrc/*.cu`` into ``build/libsvt_kernels.so`` if stale (or
-    ``force``). The library is written under a temporary name and renamed
-    into place, so concurrent builds never load a half-written file."""
+    ``force``): one nvcc per source, all started together, then one link.
+    The library is written under a temporary name and renamed into place, so
+    concurrent builds never load a half-written file."""
     if not (force or is_stale()):
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix="libsvt_", suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cus = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(prefix="svt_obj_", dir=BUILD_DIR) as obj_dir:
+        cus = [s for s in sources() if s.suffix == ".cu"]
+        objs = [str(Path(obj_dir) / (s.stem + ".o")) for s in cus]
+        _run_all([[nvcc_path(), *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(cus, objs)])
+        tmp = str(Path(obj_dir) / LIB_PATH.name)
+        _run_all([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, LIB_PATH)
 
 
 def library() -> ctypes.CDLL:

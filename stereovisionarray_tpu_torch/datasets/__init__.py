@@ -1,1 +1,1 @@
-"""Numpy-only dataset readers (no imageio, no JAX)."""
+"""Numpy-only dataset readers and the synthetic camera-array renderer (no imageio, no JAX)."""

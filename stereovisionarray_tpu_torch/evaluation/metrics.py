@@ -37,3 +37,26 @@ def end_point_error(disparity: torch.Tensor, gt: torch.Tensor,
     m = valid if mask is None else (valid & mask)
     err, mf = _masked((disparity - gt).abs(), m)
     return err.sum() / mf.sum().clamp_min(1.0)
+
+
+def array_depth_metrics(depth, refined_depth, valid, gt, border: int = 8) -> dict:
+    """Camera-array accuracy as ``scripts/make_array_eval.py`` scores it, over
+    the valid pixels of the interior (a `border`-pixel band dropped): median
+    relative depth error of the sweep and of the refined depth, the fraction
+    of refined pixels within 1%, and the valid share of the interior.
+    Inputs are (H, W) tensors or arrays; computed in numpy on the host."""
+    import numpy as np
+
+    host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)  # noqa: E731
+    depth, refined_depth, valid, gt = map(host, (depth, refined_depth, valid, gt))
+    inner = np.zeros(valid.shape, dtype=bool)
+    inner[border:-border, border:-border] = True
+    sel = valid & inner
+    rel = lambda d: np.abs((np.abs(d) - gt)[sel] / gt[sel])  # noqa: E731
+    r_sweep, r_ref = rel(depth), rel(refined_depth)
+    return {
+        "median_rel_depth_err_sweep": float(np.median(r_sweep)),
+        "median_rel_depth_err_refined": float(np.median(r_ref)),
+        "frac_rel_err_lt_1pct_refined": float((r_ref < 0.01).mean()),
+        "density": float(sel.sum() / inner.sum()),
+    }

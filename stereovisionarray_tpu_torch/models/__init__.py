@@ -1,5 +1,18 @@
-"""Pipelines built from ``ops`` (the two-view SGM slice so far)."""
+"""Pipelines built from ``ops``: two-view SGM, the array plane sweep and the
+camera-array depth pipeline."""
 
+from stereovisionarray_tpu_torch.models.array_pipeline import (  # noqa: F401
+    ArrayPipelineOutput,
+    array_baselines,
+    array_depth_pipeline,
+    reference_and_sources,
+)
+from stereovisionarray_tpu_torch.models.plane_sweep import (  # noqa: F401
+    PlaneSweepOutput,
+    plane_sweep_depth,
+    plane_sweep_volume,
+    translation_shifts,
+)
 from stereovisionarray_tpu_torch.models.two_view import (  # noqa: F401
     TwoViewOutput,
     depth_to_disparity,

@@ -2,7 +2,10 @@
 CUDA tensors, bit-exact, across the configurations the kernels branch on:
 every lanes-per-warp width of the SGM scans (D up to 32, 64, 128, 256),
 census codes of one to four 64-bit words, int8 and int16 costs, 4 and 8 paths,
-and images narrower than a tile or than the disparity range.
+and images narrower than a tile or than the disparity range; the plane sweep
+K8 over 1 to 24 sources, every fusion (plain mean, valid mean, top-k from 1
+to S-1), patch 3 to 17, odd shapes and 1 to 256 planes; K2/K3 and K4 at
+D=128 on a quantized plane volume.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -18,6 +21,7 @@ from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
 from stereovisionarray_tpu_torch.ops.extract_cuda import extract_maps, lr_gather
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps
 from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
+from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
 
 pytestmark = pytest.mark.gpu
 
@@ -84,3 +88,54 @@ def test_extract_and_lr_gather_kernels(rng, h, w, D, subpixel, uniqueness):
     disp_l[:, ::3] = torch.floor(disp_l[:, ::3]) + 0.5  # rounding ties, half to even
     gather = lambda b: lr_gather(disp_l, maps.disparity_right, D, b)  # noqa: E731
     _same(gather("cuda"), gather("torch"))
+
+
+@pytest.mark.parametrize("S,topk,valid_mean,patch,h,w,D", [
+    (1, None, False, 5, 33, 47, 7),
+    (1, None, True, 3, 17, 40, 1),
+    (4, None, False, 5, 37, 65, 128),
+    (4, 1, False, 7, 29, 33, 7),
+    (4, 3, False, 9, 21, 70, 7),
+    (4, None, False, 17, 20, 30, 7),  # 288 census bits: five 64-bit words
+    (8, 6, False, 5, 40, 41, 128),
+    (8, None, True, 3, 31, 97, 7),
+    (9, None, False, 5, 35, 63, 7),  # the reference kernel's sentinel-pad case
+    (9, 8, False, 7, 19, 35, 256),
+    (24, 6, False, 5, 45, 61, 128),
+    (24, 1, False, 3, 23, 37, 7),
+    (24, 23, False, 9, 27, 29, 7),
+    (24, None, True, 5, 41, 53, 256),
+    (24, None, False, 7, 13, 100, 1),
+])
+def test_plane_sweep_kernel(rng, S, topk, valid_mean, patch, h, w, D):
+    """K8 on float (non-integer) images, with fractional, integer, zero and
+    out-of-image shifts."""
+    ref = _cuda(rng.uniform(0, 255, (h, w)).astype(np.float32))
+    src = _cuda(rng.uniform(0, 255, (S, h, w)).astype(np.float32))
+    sh = rng.uniform(-12, 12, (D, S, 2)).astype(np.float32)
+    sh[::3, :, 1] = 0.0  # motion along x only
+    sh[1::4] = np.round(sh[1::4])  # integer shifts: zero lerp weights
+    sh[-1, 0] = (w + 5.0, -h - 3.5)  # a source entirely out of view
+    shifts = _cuda(sh)
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, valid_mean, topk, b)  # noqa: E731
+    got = call("cuda")
+    _same(got, call("torch"))
+    assert got[0].shape == (h, w, D) and got[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+@pytest.mark.parametrize("patch,dtype", [(5, torch.int8), (7, torch.int16)])
+def test_sgm_and_extract_kernels_on_a_plane_volume(rng, patch, dtype, num_paths):
+    """K2/K3 and K4 at D=128 on a quantized plane-sweep volume, as the array
+    path feeds them."""
+    h, w, S, D = 45, 70, 4, 128
+    ref = _cuda(rng.uniform(0, 255, (h, w)).astype(np.float32))
+    src = _cuda(rng.uniform(0, 255, (S, h, w)).astype(np.float32))
+    shifts = _cuda(rng.uniform(-6, 6, (D, S, 2)).astype(np.float32))
+    vol, _ = plane_sweep_census(ref, src, shifts, patch)
+    q = torch.round(vol * 4).to(dtype)
+    p2_y, p2_x = p2_maps((h, w), 384, torch.int16, q.device, ref, True, 96)
+    paths = lambda b: sgm_aggregate_paths(q, p2_y, p2_x, 32, num_paths, b)  # noqa: E731
+    total = paths("cuda")
+    _same(total, paths("torch"))
+    _same(extract_maps(total, True, 0.0, "cuda"), extract_maps(total, True, 0.0, "torch"))

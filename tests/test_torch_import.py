@@ -34,6 +34,31 @@ def test_importing_every_module_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+ARRAY_SLICE_MODULES = (
+    "geometry.camera", "geometry.epipolar", "geometry.topology", "datasets.synthetic",
+    "ops.warp", "ops.sweep_cuda", "ops.refine", "models.plane_sweep", "models.array_pipeline",
+)
+
+
+@pytest.fixture(scope="module")
+def jax_after_import():
+    """For each camera-array module, imported alone in a fresh interpreter
+    (all started together): the jax modules it left in sys.modules."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')))")
+    procs = {m: subprocess.Popen([sys.executable, "-c", probe, f"stereovisionarray_tpu_torch.{m}"],
+                                 cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+             for m in ARRAY_SLICE_MODULES}
+    return {m: p.communicate(timeout=300)[0].strip() or "failed to import"
+            for m, p in procs.items()}
+
+
+@pytest.mark.parametrize("module", ARRAY_SLICE_MODULES)
+def test_array_slice_module_leaves_jax_out(jax_after_import, module):
+    assert jax_after_import[module] == "[]"
+
+
 def test_no_source_file_imports_jax():
     offenders = [
         str(path.relative_to(REPO))
