@@ -33,6 +33,25 @@ The camera-array slice adds, after its two-view counterpart each:
     EVAL_ARRAY_r05.json for the record;
  6b. array timing: ms per frame-set, kernel and plain, and K8, K2/K3 and K4
     at D=128 beside their plain versions.
+The cascade slice adds, after the array phases each:
+ 3c. K9 parity: the hat sampler against its plain version on the same CUDA
+    tensors, bit-exact, at the cascades' shapes (the two-view residual warp
+    with its aux table, the two-view decode, the array pre-warp along rows and
+    along columns for all sources in one launch) and with t far outside the
+    tap range;
+ 4c. cascade main paths: cascade_two_view_disparity at scripts/perf_cascade.py's
+    configuration (540x768, 256 disparities, int8) on its large-range scene,
+    and array_depth_pipeline with plane_sweep.cascade at
+    scripts/perf_cascade_sweep.py's (5x5, 270x360, 128 planes, CROSS), each
+    bit-exact to backend="torch" on the card in every output, in smooth and
+    band mode; K1-K5 must launch on the two-view cascade and K8, K2/K3 and K4
+    on the array cascade, and K9 on both in smooth mode (band mode warps and
+    decodes by gathers);
+ 5c. cascade accuracy: the metrics of both perf scripts against
+    CASCADE_GOLDEN; the TPU values of EVAL_CASCADE*_r05.json are printed
+    beside them for the record;
+ 6c. cascade timing: each cascade beside its flat pipeline, and K9 beside its
+    plain version at the cascades' shapes.
 The line before the last lists the kernels; the last line is the result.
 Needs no network and no JAX.
 """
@@ -79,6 +98,91 @@ EVAL_ARRAY_R05 = {"median_rel_depth_err_sweep": 0.00069, "median_rel_depth_err_r
 ARRAY_FRAMES = 10
 TIMED_FRAMES = 20
 PLAIN_FRAMES = 3  # the plain path runs thousands of small launches a frame
+CASCADE_SHAPE = (540, 768, 256)  # scripts/perf_cascade.py:35-40: H, W, total disparities
+# scripts/perf_cascade_sweep.py:42-45,77-92: the array cascade over the CROSS bench shape
+ARRAY_CASCADE = {"plane_sweep.topology": "CROSS", "plane_sweep.cascade": True,
+                 "plane_sweep.cascade_coarse_factor": 4, "plane_sweep.cascade_fine_planes": 48,
+                 "plane_sweep.cascade_band_step": 8}
+# the reference's kernel route (backend="pallas_interpret") at full size, with JAX on
+# the CPU: perf_cascade.py:180-192's metrics of cascade_two_view_disparity on
+# make_scene(rng 0), and perf_cascade_sweep.py:143-157's of the array cascade (its
+# cascade_plane_sweep_depth and the refine loop of models/array_pipeline.py)
+CASCADE_GOLDEN = {
+    "two_view": {"valid_in_mask": 0.994552595872313, "bad2": 0.0004652926173571379,
+                 "epe": 0.11263467371463776, "median_err": 0.0914764404296875},
+    "array": {"valid_inner": 1.0, "median_rel": 0.0013529658317565918,
+              "mean_rel": 0.0015273640165105462, "bad2pct": 0.0005951290972349386},
+}
+# The smooth cascades' float glue (box filters, column means, resize) sums in
+# PyTorch's order, not XLA's, which moves census bits at near-ties. From these
+# values the port lands, on the CPU, 8.6e-6 / 3.2e-6 / 9.8e-6 px / 7.6e-6 px
+# (two-view) and 0 / 1.2e-7 / 1.3e-11 / 0 (array); on an H100, 1.7e-5 / 8e-9 /
+# 3.0e-6 px / 1.5e-5 px and 0 / 1.2e-7 / 2.6e-9 / 0. The bounds keep about 3x
+# over the larger gap.
+CASCADE_GOLDEN_TOL = {
+    "two_view": {"valid_in_mask": 5e-5, "bad2": 5e-5, "epe": 1e-4, "median_err": 1e-4},
+    "array": {"valid_inner": 0.0, "median_rel": 1e-6, "mean_rel": 1e-6, "bad2pct": 2e-5},
+}
+# the reference on a TPU v5e (EVAL_CASCADE_r05.json, EVAL_CASCADE_SWEEP_r05.json), for the record
+EVAL_CASCADE_R05 = {
+    "two_view": {"valid_in_mask": 0.9945, "bad2": 0.00047, "epe": 0.1128, "median_err": 0.0915},
+    "array": {"valid_inner": 1.0, "median_rel": 0.001341, "mean_rel": 0.001509, "bad2pct": 0.00057},
+}
+
+
+def two_view_cascade_config(CostConfig, SGMConfig):
+    """scripts/perf_cascade.py:118-128: (cost, sgm, cascade keyword arguments)."""
+    return (CostConfig(num_disparities=CASCADE_SHAPE[2], dtype="int8"),
+            SGMConfig(p1=8.0, p2=96.0, num_paths=8),
+            dict(coarse_factor=4, fine_disparities=24, band_step=8))
+
+
+def two_view_cascade_scene(torch, device):
+    """perf_cascade.py's make_scene(rng 0) at CASCADE_SHAPE: (left, right) on
+    `device`, and the gt disparity and eval mask in numpy."""
+    from stereovisionarray_tpu_torch.datasets.synthetic import large_range_pair
+
+    left, right, gt, mask = large_range_pair(np.random.default_rng(0), *CASCADE_SHAPE[:2])
+    return torch.from_numpy(left).to(device), torch.from_numpy(right).to(device), gt, mask
+
+
+def two_view_cascade_run(left, right, mode="smooth", backend="auto"):
+    """cascade_two_view_disparity at perf_cascade.py's configuration."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.models import cascade_two_view_disparity
+
+    cost, sgm, kw = two_view_cascade_config(config.CostConfig, config.SGMConfig)
+    return cascade_two_view_disparity(left, right, cost, sgm, mode=mode, backend=backend, **kw)
+
+
+def two_view_cascade_metrics(torch, device) -> dict:
+    from stereovisionarray_tpu_torch.evaluation import cascade_disparity_metrics
+
+    left, right, gt, mask = two_view_cascade_scene(torch, device)
+    return cascade_disparity_metrics(two_view_cascade_run(left, right).disparity, gt, mask)
+
+
+def array_cascade_scene(torch, device):
+    """perf_cascade_sweep.py's rig and scene: (cameras, images, depths, config)."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
+
+    rows, cols, h, w, planes = ARRAY_SHAPE
+    cams = reference_rig(rows=rows, cols=cols, spacing=0.05, resolution=(h, w))
+    images, depths = render_camera_array(cams, (h, w))
+    cfg = config.EngineConfig().override(**{"camera.rows": rows, "camera.cols": cols,
+                                            "plane_sweep.num_planes": planes, **ARRAY_CASCADE})
+    return cams, torch.from_numpy(images).to(device), depths, cfg
+
+
+def array_cascade_metrics(torch, device) -> dict:
+    from stereovisionarray_tpu_torch.evaluation import cascade_depth_metrics
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline
+
+    cams, images, depths, cfg = array_cascade_scene(torch, device)
+    out = array_depth_pipeline(images, cams, cfg)
+    ref_index = (ARRAY_SHAPE[0] // 2) * ARRAY_SHAPE[1] + ARRAY_SHAPE[1] // 2
+    return cascade_depth_metrics(out.refined_depth, out.valid, depths[ref_index])
 
 
 def fail(msg: str) -> None:
@@ -156,6 +260,12 @@ def main() -> None:
     )
     from stereovisionarray_tpu_torch.models.plane_sweep import translation_shifts
     from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
+    from stereovisionarray_tpu_torch.evaluation import (
+        cascade_depth_metrics,
+        cascade_disparity_metrics,
+    )
+    from stereovisionarray_tpu_torch.models.cascade import SMOOTH_R
+    from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
 
     CostConfig, SGMConfig = config.CostConfig, config.SGMConfig
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,7 +367,7 @@ def main() -> None:
         return (images[ref_index].contiguous(), images[list(src)].contiguous(),
                 torch.from_numpy(np.ascontiguousarray(shifts)).cuda()), fusion
 
-    cams, images, _ = array_scene(AH, AW)
+    cams, images, depths = array_scene(AH, AW)
     odd_cams, odd_images, _ = array_scene(271, 361)
     k8_cases = (
         ("cross", cams, images, array_config(AD, **{"plane_sweep.topology": "CROSS"})),
@@ -280,6 +390,48 @@ def main() -> None:
               "sources": args[1].shape[0], **fusion, "max_abs_err": err, **tag})
         if err != 0.0:
             fail(f"K8 differs from its plain version in case {name}: {err}")
+
+    # ---- 3c. K9 parity -------------------------------------------------------
+    k9 = {"name": "K9 hat_sample", "fn": hat_sample, "max_abs_err": 0.0,
+          "launches": 0, "array_launches": 0,  # on neither earlier path
+          "source": "stereovisionarray_tpu_torch/csrc/hat_sample.cu",
+          "replaces": "stereovisionarray_tpu/ops/hatsample.py:41"}
+    CH, CW, _ = CASCADE_SHAPE
+    tv_cost, tv_sgm, tv_kw = two_view_cascade_config(CostConfig, SGMConfig)
+    casc_cfg = array_config(AD, **ARRAY_CASCADE)
+    c_ref, c_src = reference_and_sources(casc_cfg, rows * cols)
+    pre_r = _shift_warp_pad(cams, c_ref, c_src, casc_cfg) + 1  # the array pre-warp's half-range
+    k9_cases = (  # name, shape, k0, k1, aux table, axis
+        ("two_view_warp", (CH, CW), -SMOOTH_R, SMOOTH_R, True, -1),
+        ("two_view_decode", (CH, CW), 0, tv_kw["fine_disparities"] - 1, False, -1),
+        ("array_prewarp_rows", (len(c_src), AH, AW), -pre_r, pre_r, False, -2),
+        ("array_prewarp_cols", (len(c_src), AH, AW), -pre_r, pre_r, False, -1),
+    )
+
+    def k9_call(case, seed, outside=False):
+        """K9's call at a case's shape on random maps: b -> output."""
+        _, shape, k0, k1, aux, axis = case
+        rng = np.random.default_rng(seed)
+        values = torch.from_numpy(rng.uniform(0.0, 255.0, shape).astype(np.float32)).cuda()
+        lo, hi = (k0 - 40.0, k1 + 40.0) if outside else (k0 - 1.5, k1 + 1.5)
+        t = torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).cuda()
+        a = (torch.from_numpy(rng.uniform(0.0, 200.0, shape[-1]).astype(np.float32)).cuda()
+             if aux else None)
+        return lambda b: hat_sample(values, t, k0, k1, aux=a, axis=axis, backend=b)
+
+    for i, case in enumerate(k9_cases):
+        for outside in (False, True):
+            call = k9_call(case, i, outside)
+            got, want = call("cuda"), call("torch")
+            torch.cuda.synchronize()
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max(max_err(torch, a, b) for a, b in pairs)
+            k9["max_abs_err"] = max(k9["max_abs_err"], err)
+            emit({"phase": "k9_parity", "case": case[0], "shape": list(case[1]),
+                  "taps": [case[2], case[3]], "axis": case[5], "aux": case[4],
+                  "t_outside_range": outside, "max_abs_err": err, **tag})
+            if err != 0.0:
+                fail(f"K9 differs from its plain version in case {case[0]}: {err}")
 
     # ---- 4. main path --------------------------------------------------------
     bench_cfg = (CostConfig(num_disparities=64, census_window=(7, 9), dtype="int8"),
@@ -346,6 +498,68 @@ def main() -> None:
         if tuple(out.refined_depth.shape) != (AH, AW):
             fail(f"array path ({name}) depth shape {tuple(out.refined_depth.shape)}")
 
+    # ---- 4c. cascade main paths -----------------------------------------------
+    all_kernels = kernels + [k8, k9]
+
+    def counted(run):
+        """run() with every launch count set to 0 just before: (output, counts)."""
+        for k in all_kernels:
+            k["fn"].launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k["name"]: k["fn"].launches for k in all_kernels}
+
+    tv_left, tv_right, tv_gt, tv_mask = two_view_cascade_scene(torch, images.device)
+    tv_out, tv_launches = counted(lambda: two_view_cascade_run(tv_left, tv_right))
+    arr_out, arr_launches = counted(lambda: array_depth_pipeline(images, cams, casc_cfg))
+    for k in all_kernels:
+        k["cascade_launches"] = tv_launches[k["name"]] + arr_launches[k["name"]]
+    two_view_kernels = [k["name"] for k in kernels]
+    array_kernels = [k8["name"], "K2/K3 sgm_paths", "K4 extract_maps"]
+    tv_needed = {"smooth": two_view_kernels + [k9["name"]], "band": two_view_kernels}
+    arr_needed = {"smooth": array_kernels + [k9["name"]], "band": array_kernels}
+    tv_fields = ("disparity", "valid", "cost", "confidence", "coarse_disparity", "band_offset")
+    sweep_fields = ("depth", "plane", "cost", "valid", "num_views", "confidence")
+    for mode in ("smooth", "band"):
+        out, launches = ((tv_out, tv_launches) if mode == "smooth" else
+                         counted(lambda: two_view_cascade_run(tv_left, tv_right, mode)))
+        missing = [n for n in tv_needed[mode] if launches[n] == 0]
+        if missing:
+            fail(f"the two-view cascade ({mode}) never launched {missing}")
+        plain = two_view_cascade_run(tv_left, tv_right, mode, backend="torch")
+        errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in tv_fields}
+        finite = bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
+        emit({"phase": "cascade_main_path", "run": f"two_view_{mode}", "shape": list(CASCADE_SHAPE),
+              "dtype": tv_cost.dtype, **tv_kw, "valid_fraction": out.valid.float().mean().item(),
+              "launches": launches,
+              "max_abs_err_vs_plain": errs, "finite": finite, **tag})
+        if any(e != 0.0 for e in errs.values()) or not finite:
+            fail(f"two-view cascade ({mode}) differs from the plain path or is not finite")
+        if tuple(out.disparity.shape) != (CH, CW):
+            fail(f"two-view cascade ({mode}) disparity shape {tuple(out.disparity.shape)}")
+        cfg = casc_cfg.override(**{"plane_sweep.cascade_mode": mode})
+        out, launches = ((arr_out, arr_launches) if mode == "smooth" else
+                         counted(lambda: array_depth_pipeline(images, cams, cfg)))
+        missing = [n for n in arr_needed[mode] if launches[n] == 0]
+        if missing:
+            fail(f"the array cascade ({mode}) never launched {missing}")
+        plain = array_depth_pipeline(images, cams, cfg, backend="torch")
+        fields = ("depth", "refined_depth", "disparity", "refined_disparity", "valid")
+        errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in fields}
+        errs.update({f"sweep.{f}": max_err(torch, getattr(out.sweep, f), getattr(plain.sweep, f))
+                     for f in sweep_fields})
+        finite = bool(torch.isfinite(out.refined_depth).all() and torch.isfinite(out.depth).all())
+        emit({"phase": "cascade_main_path", "run": f"array_{mode}",
+              "shape": [rows * cols, AH, AW, AD], "sources": len(c_src),
+              **{k.split(".")[1]: v for k, v in ARRAY_CASCADE.items() if "cascade_" in k},
+              "valid_fraction": out.valid.float().mean().item(),
+              "launches": launches,
+              "max_abs_err_vs_plain": errs, "finite": finite, **tag})
+        if any(e != 0.0 for e in errs.values()) or not finite:
+            fail(f"array cascade ({mode}) differs from the plain path or is not finite")
+        if tuple(out.refined_depth.shape) != (AH, AW):
+            fail(f"array cascade ({mode}) depth shape {tuple(out.refined_depth.shape)}")
+
     # ---- 5. golden fixture -------------------------------------------------
     pair = load_middlebury_pair(str(REPO / "data" / "eval_scene"))
     gt = torch.from_numpy(pair.gt_disparity).cuda()
@@ -386,6 +600,19 @@ def main() -> None:
                    if abs(got[m] - want[m]) > tol}
             if off:
                 fail(f"array golden metrics off the reference by {off}")
+
+    # ---- 5c. cascade accuracy --------------------------------------------------
+    cascade_metrics = {
+        "two_view": cascade_disparity_metrics(tv_out.disparity, tv_gt, tv_mask),
+        "array": cascade_depth_metrics(arr_out.refined_depth, arr_out.valid, depths[c_ref]),
+    }
+    for path, got in cascade_metrics.items():
+        want, tol = CASCADE_GOLDEN[path], CASCADE_GOLDEN_TOL[path]
+        emit({"phase": "cascade_golden", "path": path, "metrics": got, "reference": want,
+              "tolerance": tol, "tpu_v5e_eval_r05": EVAL_CASCADE_R05[path], **tag})
+        off = {m: abs(got[m] - want[m]) for m in want if abs(got[m] - want[m]) > tol[m]}
+        if off:
+            fail(f"cascade golden metrics ({path}) off the reference by {off}")
 
     # ---- 6. timing ------------------------------------------------------------
     h, w, D = BENCH_SHAPE
@@ -445,13 +672,42 @@ def main() -> None:
               "shape": [AH, AW, AD], "dtype": "int8", "iters": TIMED_FRAMES, "ms": k_ms,
               "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
 
+    # ---- 6c. cascade timing ----------------------------------------------------
+    runs = {
+        "two_view_cascade": lambda b: two_view_cascade_run(tv_left, tv_right, backend=b),
+        "two_view_flat": lambda b: two_view_disparity(tv_left, tv_right, tv_cost, tv_sgm,
+                                                      backend=b),
+        "array_cascade": lambda b: array_depth_pipeline(images, cams, casc_cfg, backend=b),
+        "array_flat": lambda b: array_depth_pipeline(images, cams, array_cfgs["cross"], backend=b),
+    }
+    for name, run in runs.items():
+        frames = TIMED_FRAMES if name.startswith("two_view") else ARRAY_FRAMES
+        ms = cuda_ms(torch, lambda: run("auto"), frames)
+        # the plain flat two-view at 256 disparities runs for seconds a frame: not timed
+        plain_ms = (None if name == "two_view_flat"
+                    else cuda_ms(torch, lambda: run("torch"), 1, warmup=1))
+        shape = list(CASCADE_SHAPE) if name.startswith("two_view") else [rows * cols, AH, AW, AD]
+        emit({"phase": "timing", "metric": f"{name}_ms", "shape": shape, "frames": frames,
+              "ms": ms, "plain_frames": 1 if plain_ms is not None else 0, "plain_ms": plain_ms,
+              **tag})
+    for i, case in enumerate(k9_cases):
+        call = k9_call(case, i)
+        k_ms = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        p_ms = cuda_ms(torch, lambda: call("torch"), TIMED_FRAMES)
+        emit({"phase": "timing", "kernel": k9["name"], "case": case[0], "shape": list(case[1]),
+              "taps": [case[2], case[3]], "iters": TIMED_FRAMES, "ms": k_ms,
+              "plain_iters": TIMED_FRAMES, "plain_ms": p_ms, **tag})
+        if case[0] == "two_view_warp":
+            k9["ms"], k9["plain_ms"] = k_ms, p_ms
+
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"],
-                       "launches": k["launches"] + k["array_launches"],
+                       "launches": k["launches"] + k["array_launches"] + k["cascade_launches"],
                        "launches_by_path": {"two_view": k["launches"],
-                                            "array": k["array_launches"]},
+                                            "array": k["array_launches"],
+                                            "cascade": k["cascade_launches"]},
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
-                      for k in kernels + [k8]]})
+                      for k in all_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

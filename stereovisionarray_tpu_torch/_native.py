@@ -50,6 +50,8 @@ _SIGNATURES = {
     "svt_lr_gather": (_P, _P, _P, _I, _I, _I, _P),
     # ref, src, shifts, fused, nviews, n_src, h, w, n_planes, patch, mode, topk, stream
     "svt_plane_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # values, t, aux, out, aux_out, batch, h, w, k0, k1, along_rows, stream
+    "svt_hat_sample": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

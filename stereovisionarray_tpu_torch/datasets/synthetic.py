@@ -18,7 +18,8 @@ import numpy as np
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray, translation_only_array
 from stereovisionarray_tpu_torch.geometry.topology import grid_positions
 
-__all__ = ["SceneSpec", "reference_rig", "render_camera_array", "render_view"]
+__all__ = ["SceneSpec", "large_range_pair", "reference_rig", "render_camera_array",
+           "render_view"]
 
 
 @dataclass(frozen=True)
@@ -189,3 +190,32 @@ def render_camera_array(
     scene = scene or SceneSpec()
     views = [render_view(cameras, i, resolution, scene) for i in range(len(cameras))]
     return np.stack([v[0] for v in views]), np.stack([v[1] for v in views])
+
+
+def large_range_pair(rng: np.random.Generator, h: int, w: int, margin: int = 48):
+    """A rectified pair over a large disparity range (copy of
+    ``scripts/perf_cascade.py::make_scene``): a slanted plane plus a smooth
+    bump, d in about [24, 232] with |dd/dx| < 1, textured by smoothed noise
+    and inverse-mapped exactly into the right view. Returns (left, right,
+    gt_disparity, eval_mask): float32 maps and the bool mask of the interior
+    pixels whose match is visible, past a `margin`-pixel border strip."""
+    x = np.arange(w, dtype=np.float64)
+    y = np.arange(h, dtype=np.float64)[:, None]
+    d = (24.0 + 160.0 * (x[None, :] / (w - 1))
+         + 48.0 * np.exp(-(((x[None, :] - 0.55 * w) / (0.18 * w)) ** 2
+                           + ((y - 0.5 * h) / (0.3 * h)) ** 2)))
+    t = rng.uniform(0.0, 255.0, (h, w)).astype(np.float64)
+    for _ in range(2):
+        t = (t + np.roll(t, 1, 0) + np.roll(t, -1, 0)) / 3.0
+        t = (t + np.roll(t, 1, 1) + np.roll(t, -1, 1)) / 3.0
+    left = t
+    right = np.zeros_like(left)
+    for yy in range(h):
+        u_of_x = x - d[yy]  # strictly increasing: invert by interpolation
+        right[yy] = np.interp(np.interp(x, u_of_x, x), x, left[yy])
+        right[yy, x < u_of_x[0]] = left[yy, 0]  # never seen by the left view
+    mask = np.zeros((h, w), bool)
+    mask[8:-8, :] = True
+    mask &= x[None, :] >= d + margin
+    mask[:, -8:] = False
+    return left.astype(np.float32), right.astype(np.float32), d.astype(np.float32), mask

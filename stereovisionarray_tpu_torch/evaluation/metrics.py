@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,10 @@ def _masked(values: torch.Tensor, mask: Optional[torch.Tensor]):
     m = torch.broadcast_to(mask, torch.broadcast_shapes(values.shape, mask.shape))
     m = m.to(torch.float32)
     return values * m, m
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def bad_pixel_ratio(disparity: torch.Tensor, gt: torch.Tensor, tau: float = 2.0,
@@ -45,10 +50,7 @@ def array_depth_metrics(depth, refined_depth, valid, gt, border: int = 8) -> dic
     relative depth error of the sweep and of the refined depth, the fraction
     of refined pixels within 1%, and the valid share of the interior.
     Inputs are (H, W) tensors or arrays; computed in numpy on the host."""
-    import numpy as np
-
-    host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)  # noqa: E731
-    depth, refined_depth, valid, gt = map(host, (depth, refined_depth, valid, gt))
+    depth, refined_depth, valid, gt = map(_host, (depth, refined_depth, valid, gt))
     inner = np.zeros(valid.shape, dtype=bool)
     inner[border:-border, border:-border] = True
     sel = valid & inner
@@ -60,3 +62,29 @@ def array_depth_metrics(depth, refined_depth, valid, gt, border: int = 8) -> dic
         "frac_rel_err_lt_1pct_refined": float((r_ref < 0.01).mean()),
         "density": float(sel.sum() / inner.sum()),
     }
+
+
+def cascade_disparity_metrics(disparity, gt, mask) -> dict:
+    """Two-view accuracy as ``scripts/perf_cascade.py`` scores the cascade,
+    over the mask's pixels with a valid (>= 0) disparity: the valid share of
+    the mask, the fraction off by more than 2 px, the mean and the median
+    absolute error. Computed in numpy on the host."""
+    d, gt, mask = map(_host, (disparity, gt, mask))
+    m = mask & (d >= 0)
+    err = np.abs(d - gt)[m]
+    return {"valid_in_mask": float(m.sum() / mask.sum()), "bad2": float((err > 2.0).mean()),
+            "epe": float(err.mean()), "median_err": float(np.median(err))}
+
+
+def cascade_depth_metrics(depth, valid, gt, border: int = 8) -> dict:
+    """Camera-array accuracy as ``scripts/perf_cascade_sweep.py`` scores it,
+    over the valid pixels of the interior: the valid share of the interior
+    and the median and mean relative depth error, and the fraction above 2%.
+    Computed in numpy on the host."""
+    depth, valid, gt = map(_host, (depth, valid, gt))
+    inner = np.zeros(valid.shape, dtype=bool)
+    inner[border:-border, border:-border] = True
+    sel = valid & inner
+    rel = np.abs(depth[sel] - gt[sel]) / gt[sel]
+    return {"valid_inner": float(sel.sum() / inner.sum()), "median_rel": float(np.median(rel)),
+            "mean_rel": float(rel.mean()), "bad2pct": float((rel > 0.02).mean())}

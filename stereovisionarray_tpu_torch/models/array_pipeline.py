@@ -1,7 +1,9 @@
 """End-to-end camera-array depth pipeline (twin of
 ``stereovisionarray_tpu/models/array_pipeline.py``): plane sweep over the
-array (K8 + SGM K2/K3 + extraction K4 on a CUDA tensor), disparity in the
-reference-baseline scale, multi-view photoconsistency refinement.
+array (K8 + SGM K2/K3 + extraction K4 on a CUDA tensor; with
+``plane_sweep.cascade`` the coarse-to-fine sweep of ``models/cascade_sweep.py``,
+which adds the hat-sampling pre-warp K9), disparity in the reference-baseline
+scale, multi-view photoconsistency refinement.
 
 Host code selects the reference and source views and derives the static
 shift bound and the baselines from the rig; every numeric stage runs on the
@@ -19,6 +21,10 @@ from stereovisionarray_tpu.config import EngineConfig
 from stereovisionarray_tpu_torch.backend import resolve_backend
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.topology import PairTopology, camera_pairs
+from stereovisionarray_tpu_torch.models.cascade_sweep import (
+    cascade_plane_sweep_depth,
+    cascade_static_params,
+)
 from stereovisionarray_tpu_torch.models.plane_sweep import PlaneSweepOutput, plane_sweep_depth
 from stereovisionarray_tpu_torch.models.two_view import depth_to_disparity, disparity_to_depth
 from stereovisionarray_tpu_torch.ops.refine import multiview_refine
@@ -130,11 +136,21 @@ def array_depth_pipeline(
         # the whole range fits one fine window: the cascade would run the same sweep
         cfg = cfg.override(**{"plane_sweep.cascade": False})
     if cfg.plane_sweep.cascade:
-        raise NotImplementedError(
-            "plane_sweep.cascade needs the cascade sweep and its hat-sample kernel K9, "
-            "not ported yet (ROADMAP.md queue 1 item 7)")
-    sweep = plane_sweep_depth(images, cameras, ref_index, src_indices, cfg.plane_sweep, cfg.sgm,
-                              mask=mask, backend=backend, shift_pad=shift_pad)
+        if shift_pad <= 0:
+            raise ValueError("plane_sweep.cascade requires a translation-only rig "
+                             "(general rigs have non-linear per-plane warps)")
+        ps = cfg.plane_sweep
+        band_offsets, _ = cascade_static_params(cameras, ref_index, src_indices, ps,
+                                                ps.cascade_fine_planes)
+        # the full-range shift bound serves the fine pass too, as in the reference
+        sweep = cascade_plane_sweep_depth(
+            images, cameras, ref_index, src_indices, ps, cfg.sgm, mask=mask, backend=backend,
+            shift_pad=shift_pad, coarse_factor=ps.cascade_coarse_factor,
+            fine_planes=ps.cascade_fine_planes, band_step=ps.cascade_band_step,
+            band_offsets=band_offsets, mode=ps.cascade_mode)
+    else:
+        sweep = plane_sweep_depth(images, cameras, ref_index, src_indices, cfg.plane_sweep,
+                                  cfg.sgm, mask=mask, backend=backend, shift_pad=shift_pad)
 
     # multi-view photoconsistency refinement in disparity space
     baselines, b0 = array_baselines(cameras, ref_index, src_indices)

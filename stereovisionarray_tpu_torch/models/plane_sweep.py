@@ -74,12 +74,17 @@ def translation_shifts(cameras: CameraArray, ref_index: int, src, depths) -> np.
         su(d) = fx_s * (t_s - t_ref).x / d + (cx_s - cx_ref)   (sv alike)
 
     in the reference's float32 operation order; `depths` is (D,) numpy."""
+    return shifts_at_inverse_depths(cameras, ref_index, src,
+                                    np.float32(1.0) / depths.astype(np.float32))
+
+
+def shifts_at_inverse_depths(cameras: CameraArray, ref_index: int, src, inv_d) -> np.ndarray:
+    """:func:`translation_shifts` at (D,) float32 inverse depths ``1 / d``."""
     host = cameras.host()
     src = np.atleast_1d(np.asarray(src, dtype=np.int64))
     n = host.t.shape[0]
     fx, fy, cx, cy = (np.broadcast_to(a, (n,)) for a in (host.fx, host.fy, host.cx, host.cy))
     t_rel = host.t[src] - host.t[ref_index]
-    inv_d = np.float32(1.0) / depths.astype(np.float32)
     su = fx[src][:, None] * t_rel[:, 0:1] * inv_d[None, :] + (cx[src] - cx[ref_index])[:, None]
     sv = fy[src][:, None] * t_rel[:, 1:2] * inv_d[None, :] + (cy[src] - cy[ref_index])[:, None]
     return np.stack([su, sv], axis=-1).astype(np.float32)
@@ -210,27 +215,43 @@ def plane_sweep_volume(
     src_indices: tuple,
     cfg: PlaneSweepConfig = PlaneSweepConfig(),
     shift_pad: int = 0,
+    depths=None,
     backend: str = "auto",
+    shifts=None,
 ):
     """The fused (H, W, D) plane-sweep cost volume, the (H, W, D) int32 count
     of in-view sources, and the (D,) plane depths.
 
     images: (N, H, W); src_indices: source view ids. shift_pad > 0 selects
-    the translation-only path and must bound the largest |shift|."""
+    the translation-only path and must bound the largest |shift|.
+    depths: explicit (D,) float32 plane depths (numpy or tensor) in place of
+    the config's inverse-depth samples. shifts: explicit (S, D, 2) per-view,
+    per-plane pixel shifts (su, sv) in place of :func:`translation_shifts`,
+    on the translation path only (the cascade's fine pass sweeps residual
+    shifts that no camera geometry describes; ``cameras`` is unused then)."""
     images = images.to(torch.float32)
     ref = images[ref_index].contiguous()
     src = [int(s) for s in src_indices]
-    depths = inverse_depth_samples(cfg.z_near, cfg.z_far, cfg.num_planes)
+    if depths is None:
+        depths = inverse_depth_samples(cfg.z_near, cfg.z_far, cfg.num_planes)
+    elif isinstance(depths, torch.Tensor):
+        depths = depths.detach().cpu().numpy()
+    depths = np.asarray(depths, dtype=np.float32)
     depths_t = torch.from_numpy(depths).to(images.device)
     src_images = images[src].contiguous()
     resolve_backend(images, backend)  # validates the backend against the device
+    if shifts is not None and shift_pad <= 0:
+        raise ValueError("explicit shifts require the translation fast path (shift_pad > 0)")
 
     if shift_pad <= 0:
         vol, nv = _homography_volume(ref, src_images, cameras, ref_index, src, depths_t, cfg)
         return vol, nv, depths_t
 
-    shifts = translation_shifts(cameras, ref_index, src, depths).swapaxes(0, 1)  # (D, S, 2)
-    shifts = torch.from_numpy(np.ascontiguousarray(shifts)).to(images.device)
+    if shifts is None:
+        shifts = translation_shifts(cameras, ref_index, src, depths)
+    if not isinstance(shifts, torch.Tensor):
+        shifts = torch.from_numpy(np.asarray(shifts, dtype=np.float32))
+    shifts = shifts.to(device=images.device, dtype=torch.float32).transpose(0, 1).contiguous()
     S = len(src)
     mean_fusion = cfg.fusion == "mean" or (cfg.fusion == "topk_mean" and cfg.topk >= S)
     kernel_topk = (int(cfg.topk) if cfg.fusion == "topk_mean" and 1 <= cfg.topk < S else None)

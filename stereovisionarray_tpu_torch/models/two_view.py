@@ -4,7 +4,8 @@
 Integer costs (int16 at scale 4, int8 at scale 1) run the reference's
 integer fast path: census/BT cost volume (K1) -> 4/8-path SGM (K2/K3) ->
 WTA, subpixel, uniqueness and right-view maps (K4) -> left-right gather (K5)
--> PKRN confidence -> guarded depth. On a CUDA tensor every stage with a
+-> PKRN confidence -> optional post-filters (median, speckle, hole fill;
+``ops/postfilter.py``) -> guarded depth. On a CUDA tensor every stage with a
 kernel launches it; on a CPU tensor the plain PyTorch twins run, bit-exact to
 the reference's ``backend="pallas"`` path. float32 costs run the plain twin of
 the reference's XLA path, on the CPU only for now.
@@ -28,6 +29,7 @@ from stereovisionarray_tpu_torch.ops.cost_volume import (
     right_from_left_volume,
 )
 from stereovisionarray_tpu_torch.ops.extract_cuda import BIG_FLOAT, extract_maps, lr_gather
+from stereovisionarray_tpu_torch.ops.postfilter import fill_holes, median3x3, speckle_filter
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps, sgm_aggregate, sum_dtype
 from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
 from stereovisionarray_tpu_torch.ops.wta import (
@@ -137,10 +139,6 @@ def two_view_disparity(
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
     tensors), "cuda" (kernels, CUDA tensors only) or "torch" (plain PyTorch
     on any device)."""
-    if sgm_cfg.median_filter or sgm_cfg.speckle_window > 0 or sgm_cfg.fill_holes:
-        raise NotImplementedError(
-            "median_filter / speckle_window / fill_holes need ops/postfilter.py, "
-            "not yet ported (ROADMAP.md queue 1 item 3)")
     pen = scaled_penalties(cost_cfg, sgm_cfg, cost_cfg.dtype)
     left = left.to(torch.float32).contiguous()
     right = right.to(torch.float32).contiguous()
@@ -154,6 +152,16 @@ def two_view_disparity(
         res = _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend)
 
     disparity, valid = res.disparity, res.valid
+    # post-filters, in the reference's order; they can invalidate pixels, and
+    # the confidence below is zeroed there
+    if sgm_cfg.median_filter:
+        disparity = median3x3(disparity, valid)
+    if sgm_cfg.speckle_window > 0:
+        disparity, valid = speckle_filter(disparity, valid, max_diff=sgm_cfg.speckle_max_diff,
+                                          window=sgm_cfg.speckle_window,
+                                          min_support=sgm_cfg.speckle_min_support)
+    if sgm_cfg.fill_holes:
+        disparity, valid = fill_holes(disparity, valid)
     depth = None
     if baseline is not None and focal_px is not None:
         depth = torch.where(valid, disparity_to_depth(disparity, baseline, focal_px), 0.0)

@@ -105,10 +105,6 @@ def test_small_rig_matches_reference_route():
 @pytest.mark.parametrize("option,exc,match", [
     (dict(use_roi=True), NotImplementedError, "roi/"),
     (dict(use_roi=True, roi_mode="otsu"), NotImplementedError, "roi/"),
-    (dict(cfg=EngineConfig().override(**{"camera.rows": 3, "camera.cols": 3,
-                                         "plane_sweep.cascade": True,
-                                         "plane_sweep.num_planes": 64})),
-     NotImplementedError, "K9"),
     (dict(backend="cuda"), ValueError, "CUDA tensor"),
 ])
 def test_unported_options_raise(option, exc, match):

@@ -5,7 +5,9 @@ census codes of one to four 64-bit words, int8 and int16 costs, 4 and 8 paths,
 and images narrower than a tile or than the disparity range; the plane sweep
 K8 over 1 to 24 sources, every fusion (plain mean, valid mean, top-k from 1
 to S-1), patch 3 to 17, odd shapes and 1 to 256 planes; K2/K3 and K4 at
-D=128 on a quantized plane volume.
+D=128 on a quantized plane volume; the hat sampler K9 over tap ranges from
+one tap to 99, batches, both axes, the aux table, ragged shapes and t far
+outside the range.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -19,6 +21,7 @@ import torch
 
 from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
 from stereovisionarray_tpu_torch.ops.extract_cuda import extract_maps, lr_gather
+from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps
 from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
 from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
@@ -139,3 +142,24 @@ def test_sgm_and_extract_kernels_on_a_plane_volume(rng, patch, dtype, num_paths)
     total = paths("cuda")
     _same(total, paths("torch"))
     _same(extract_maps(total, True, 0.0, "cuda"), extract_maps(total, True, 0.0, "torch"))
+
+
+@pytest.mark.parametrize("k0,k1", [(-36, 36), (0, 23), (-49, 49), (-3, -3), (2, 9), (-12, 3)])
+@pytest.mark.parametrize("shape,axis,aux", [((540, 768), -1, True), ((33, 17), -1, False),
+                                            ((4, 45, 61), -2, False), ((4, 45, 61), -1, False),
+                                            ((3, 1, 130), -1, True), ((2, 70, 1), -2, False)])
+def test_hat_sample_kernel(rng, shape, axis, aux, k0, k1):
+    """K9 on float maps: t inside the range, on its integer taps, at its
+    edges (partial weights) and far outside it."""
+    values = _cuda(rng.uniform(0, 255, shape).astype(np.float32))
+    t = rng.uniform(k0 - 3.0, k1 + 3.0, shape).astype(np.float32)
+    flat = t.reshape(-1)
+    flat[::7] = np.round(flat[::7])  # integer taps: one weight of exactly 1
+    flat[1::11] = k0 - 40.0  # far outside: every weight 0
+    flat[2::13] = k1 + 0.5  # half a tap past the range: weight 0.5
+    tt = _cuda(t)
+    a = _cuda(rng.uniform(-30, 30, shape[-1]).astype(np.float32)) if aux else None
+    call = lambda b: hat_sample(values, tt, k0, k1, aux=a, axis=axis, backend=b)  # noqa: E731
+    got = call("cuda")
+    _same(got, call("torch"))
+    assert (got[0] if aux else got).shape == tuple(shape)

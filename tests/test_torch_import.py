@@ -37,6 +37,8 @@ def test_importing_every_module_leaves_jax_out():
 ARRAY_SLICE_MODULES = (
     "geometry.camera", "geometry.epipolar", "geometry.topology", "datasets.synthetic",
     "ops.warp", "ops.sweep_cuda", "ops.refine", "models.plane_sweep", "models.array_pipeline",
+    # the cascade slice
+    "ops.postfilter", "ops.hatsample", "models.cascade", "models.cascade_sweep",
 )
 
 
