@@ -52,7 +52,26 @@ The cascade slice adds, after the array phases each:
     beside them for the record;
  6c. cascade timing: each cascade beside its flat pipeline, and K9 beside its
     plain version at the cascades' shapes.
-The line before the last lists the kernels; the last line is the result.
+The float-cost slice adds, after the cascade phases each:
+ 3d. float kernel parity, max_abs_err 0 on the same CUDA tensors: the float
+    SGM scans and ordered combine K7 at 540x768x64 and 541x766x48, 4 and 8
+    paths, adaptive P2, in every order (k7, wdh, k10, k12), the K11 pair; the
+    extraction K6 over float32, int8 and int16 volumes with uniqueness and
+    LR; K1's float32 store;
+ 4d. float main paths, every output bit-exact to backend="torch":
+    two_view_disparity with float32 costs at the bench and entry shapes,
+    array_depth_pipeline with plane_sweep.cost="zncc" (float SGM) and
+    plane_sweep_depth with sgm_cfg=None (raw WTA) at bench_array.py's CROSS
+    shape; K7 and K6 must launch; then the K10-K12 entry points at the bench
+    shape, which no pipeline calls, each counted;
+ 5d. float golden: data/eval_scene with float32 costs against FLOAT_GOLDEN to
+    1e-6 (EVAL_r03.json printed beside it, ungated);
+ 6d. float timing: two-view float32 ms/frame beside int8, the ZNCC array ms
+    per frame-set, and K6, K7, K10-K12 beside their plain versions.
+The line before the last lists every kernel with its launches, parity error,
+time, plain time, bound (the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s) and the time of one PyTorch library call that
+computes the same function, where there is one; the last line is the result.
 Needs no network and no JAX.
 """
 
@@ -128,6 +147,16 @@ EVAL_CASCADE_R05 = {
     "two_view": {"valid_in_mask": 0.9945, "bad2": 0.00047, "epe": 0.1128, "median_err": 0.0915},
     "array": {"valid_inner": 1.0, "median_rel": 0.001341, "mean_rel": 0.001509, "bad2pct": 0.00057},
 }
+# the reference's float32 route (backend="pallas_interpret": float cost ->
+# sgm_aggregate_pallas_hdw -> extract_disparity_hdw) on data/eval_scene with the
+# scripts/make_eval_fixture.py SGM config, computed with JAX on the CPU at full size
+# (tests/test_torch_golden.py::test_float_golden_is_the_reference_route)
+FLOAT_GOLDEN = {"bad_2.0": 0.007297772914171219, "epe": 0.2934589385986328,
+                "density": 0.9592484831809998}
+FLOAT_GOLDEN_TOL = 1e-6
+# H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def two_view_cascade_config(CostConfig, SGMConfig):
@@ -266,6 +295,15 @@ def main() -> None:
     )
     from stereovisionarray_tpu_torch.models.cascade import SMOOTH_R
     from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
+    from stereovisionarray_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from stereovisionarray_tpu_torch.ops.extract_cuda import extract_disparity_maps
+    from stereovisionarray_tpu_torch.ops.sgm import ORDERS
+    from stereovisionarray_tpu_torch.ops.sgm_cuda import (
+        sgm_aggregate_float,
+        sgm_aggregate_hwd,
+        sgm_extract_fused,
+        sweep_pair,
+    )
 
     CostConfig, SGMConfig = config.CostConfig, config.SGMConfig
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -433,6 +471,72 @@ def main() -> None:
             if err != 0.0:
                 fail(f"K9 differs from its plain version in case {case[0]}: {err}")
 
+    # ---- 3d. float kernel parity ------------------------------------------------
+    src_csrc = "stereovisionarray_tpu_torch/csrc/"
+    float_kernels = [
+        {"name": "K6 extract_volume", "fn": extract_disparity_maps,
+         "source": src_csrc + "extract.cu",
+         "replaces": "stereovisionarray_tpu/ops/extract_pallas.py:218"},
+        {"name": "K7 sgm_float", "fn": sgm_aggregate_float, "source": src_csrc + "sgm_paths.cu",
+         "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:430"},
+        {"name": "K10 sgm_aggregate_hwd", "fn": sgm_aggregate_hwd,
+         "source": src_csrc + "sgm_paths.cu",
+         "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:89"},
+        {"name": "K11 sweep_pair", "fn": sweep_pair, "source": src_csrc + "sgm_paths.cu",
+         "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:326"},
+        {"name": "K12 sgm_extract_fused", "fn": sgm_extract_fused,
+         "source": src_csrc + "sgm_paths.cu",
+         "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:599"},
+    ]
+    k6, k7, k10, k11, k12 = float_kernels
+    for k in float_kernels:  # on none of the integer paths
+        k.update(max_abs_err=0.0, launches=0, array_launches=0, cascade_launches=0)
+    float_sgm = SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True, uniqueness=0.95,
+                          lr_max_diff=1.5)
+
+    def float_inputs(h, w, D, seed):
+        """The float route's inputs at one shape: K1 float32 costs and the
+        adaptive float P2 maps of the left image."""
+        left, right = stereo_pair(torch, h, w, seed)
+        vol = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, "float32")
+        p2_y, p2_x = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
+        return left, right, vol, p2_y, p2_x
+
+    def parity(k, got, want, **case):
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        err = max(max_err(torch, a, b) for a, b in pairs)
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        emit({"phase": "float_kernel_parity", "kernel": k["name"], **case, "max_abs_err": err,
+              **tag})
+        if err != 0.0:
+            fail(f"{k['name']} differs from its plain version in {case}: {err}")
+
+    for h, w, D in ((540, 768, 64), (541, 766, 48)):
+        left, right, vol, p2_y, p2_x = float_inputs(h, w, D, seed=h + D)
+        shape = [h, w, D]
+        k1_call = lambda b: fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,  # noqa: E731
+                                                   "float32", b)
+        parity(kernels[0], k1_call("cuda"), k1_call("torch"), shape=shape, dtype="float32")
+        for num_paths in (4, 8):
+            for order in ORDERS:
+                call = lambda b: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths,  # noqa: E731
+                                                     order=order, backend=b)
+                parity(k7, call("cuda"), call("torch"), shape=shape, num_paths=num_paths,
+                       order=order)
+            call = lambda b: sweep_pair(vol, p2_y, 8.0, num_paths == 8, b)  # noqa: E731
+            parity(k11, call("cuda"), call("torch"), shape=shape, num_paths=num_paths)
+        total = sgm_aggregate_float(vol, p2_y, p2_x, 8.0)
+        for name, v in (("float32_total", total),
+                        ("int8_costs", fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,
+                                                              "int8")),
+                        ("int16_costs", fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,
+                                                               "int16"))):
+            for uq, lr in ((0.95, 1.5), (0.0, 0.0)):  # without LR the right view is skipped
+                call = lambda b: extract_disparity_maps(v, True, uq, lr, b)  # noqa: E731
+                parity(k6, call("cuda"), call("torch"), shape=shape, volume=name, uniqueness=uq,
+                       lr_max_diff=lr)
+
     # ---- 4. main path --------------------------------------------------------
     bench_cfg = (CostConfig(num_disparities=64, census_window=(7, 9), dtype="int8"),
                  SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True))
@@ -499,7 +603,7 @@ def main() -> None:
             fail(f"array path ({name}) depth shape {tuple(out.refined_depth.shape)}")
 
     # ---- 4c. cascade main paths -----------------------------------------------
-    all_kernels = kernels + [k8, k9]
+    all_kernels = kernels + [k8, k9] + float_kernels
 
     def counted(run):
         """run() with every launch count set to 0 just before: (output, counts)."""
@@ -560,6 +664,97 @@ def main() -> None:
         if tuple(out.refined_depth.shape) != (AH, AW):
             fail(f"array cascade ({mode}) depth shape {tuple(out.refined_depth.shape)}")
 
+    # ---- 4d. float main paths --------------------------------------------------
+    for k in all_kernels:
+        k["float_launches"] = 0
+
+    def add_float_launches(launches):
+        for k in all_kernels:
+            k["float_launches"] += launches[k["name"]]
+
+    float_cfgs = {"bench": (CostConfig(num_disparities=64, census_window=(7, 9), dtype="float32"),
+                            float_sgm, bench_pair),
+                  "entry": (CostConfig(num_disparities=64, census_window=(7, 9), dtype="float32"),
+                            float_sgm, entry_pair)}
+    tv_float_needed = ["K1 cost_volume", k7["name"], k6["name"]]
+    for name, (cc, sc, pair) in float_cfgs.items():
+        out, launches = counted(lambda: two_view_disparity(*pair, cc, sc))
+        add_float_launches(launches)
+        missing = [n for n in tv_float_needed if launches[n] == 0]
+        if missing:
+            fail(f"the float two-view path ({name}) never launched {missing}")
+        plain = two_view_disparity(*pair, cc, sc, backend="torch")
+        errs = {f: max_err(torch, getattr(out, f), getattr(plain, f))
+                for f in ("disparity", "valid", "cost", "confidence")}
+        h, w = pair[0].shape
+        finite = bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
+        emit({"phase": "float_main_path", "run": f"two_view_{name}",
+              "shape": [h, w, cc.num_disparities], "dtype": "float32",
+              "valid_fraction": out.valid.float().mean().item(),
+              "launches": {n: c for n, c in launches.items() if c},
+              "max_abs_err_vs_plain": errs, "finite": finite, **tag})
+        if any(e != 0.0 for e in errs.values()) or not finite:
+            fail(f"float two-view ({name}) differs from the plain path or is not finite")
+
+    zncc_cfg = array_config(AD, **{"plane_sweep.topology": "CROSS", "plane_sweep.cost": "zncc"})
+    cross_cfg = array_cfgs["cross"]
+    ps_ref, ps_src = reference_and_sources(cross_cfg, rows * cols)
+    ps_pad = _shift_warp_pad(cams, ps_ref, ps_src, cross_cfg)
+    float_runs = {
+        "array_zncc": (lambda b: array_depth_pipeline(images, cams, zncc_cfg, backend=b),
+                       [k7["name"], k6["name"]],
+                       ("depth", "refined_depth", "disparity", "refined_disparity", "valid")),
+        "plane_sweep_no_sgm": (
+            lambda b: plane_sweep_depth(images, cams, ps_ref, ps_src, cross_cfg.plane_sweep, None,
+                                        backend=b, shift_pad=ps_pad),
+            [k8["name"], k6["name"]], sweep_fields),
+    }
+    for name, (run, needed, fields) in float_runs.items():
+        out, launches = counted(lambda: run("auto"))
+        add_float_launches(launches)
+        missing = [n for n in needed if launches[n] == 0]
+        if missing:
+            fail(f"the {name} path never launched {missing}")
+        plain = run("torch")
+        errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in fields}
+        if name == "array_zncc":
+            errs.update({f"sweep.{f}": max_err(torch, getattr(out.sweep, f),
+                                               getattr(plain.sweep, f)) for f in sweep_fields})
+        finite = bool(torch.isfinite(out.depth).all())
+        emit({"phase": "float_main_path", "run": name, "shape": [rows * cols, AH, AW, AD],
+              "sources": len(ps_src), "valid_fraction": out.valid.float().mean().item(),
+              "launches": {n: c for n, c in launches.items() if c},
+              "max_abs_err_vs_plain": errs, "finite": finite, **tag})
+        if any(e != 0.0 for e in errs.values()) or not finite:
+            fail(f"{name} differs from the plain path or is not finite")
+
+    # the K10-K12 entry points, which no pipeline calls, at the bench shape
+    fl, fr, fvol, fp2_y, fp2_x = float_inputs(*BENCH_SHAPE, seed=0)
+    api_runs = {
+        k10["name"]: lambda b: sgm_aggregate_hwd(fvol, 8.0, 96.0, 8, fl, True, 24.0, b),
+        k11["name"]: lambda b: sweep_pair(fvol, fp2_y, 8.0, True, b),
+        k12["name"]: lambda b: sgm_extract_fused(fvol, fp2_y, fp2_x, 8.0, 8, True, 0.95, 1.5, b),
+    }
+    api_kernels = {k["name"]: k for k in (k10, k11, k12)}
+    for name, run in api_runs.items():
+        out, launches = counted(lambda: run("auto"))
+        add_float_launches(launches)
+        if launches[name] == 0:
+            fail(f"{name} never launched its kernels")
+        others = {n: c for n, c in launches.items() if c and n != name}
+        if others:
+            fail(f"{name} counted launches under other kernels: {others}")
+        want = run("torch")
+        pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+        err = max(max_err(torch, a, b) for a, b in pairs)
+        k = api_kernels[name]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        emit({"phase": "float_main_path", "run": name, "shape": list(BENCH_SHAPE),
+              "launches": {n: c for n, c in launches.items() if c},
+              "max_abs_err_vs_plain": err, **tag})
+        if err != 0.0:
+            fail(f"{name} differs from its plain version at the bench shape: {err}")
+
     # ---- 5. golden fixture -------------------------------------------------
     pair = load_middlebury_pair(str(REPO / "data" / "eval_scene"))
     gt = torch.from_numpy(pair.gt_disparity).cuda()
@@ -613,6 +808,24 @@ def main() -> None:
         off = {m: abs(got[m] - want[m]) for m in want if abs(got[m] - want[m]) > tol[m]}
         if off:
             fail(f"cascade golden metrics ({path}) off the reference by {off}")
+
+    # ---- 5d. float golden ---------------------------------------------------------
+    eval_r03 = json.loads((REPO / "EVAL_r03.json").read_text())
+    cc = CostConfig(num_disparities=pair.ndisp, census_window=(7, 9), dtype="float32")
+    out = two_view_disparity(left, right, cc, fixture_sgm)
+    em = matchable & out.valid
+    got = {
+        "bad_2.0": bad_pixel_ratio(out.disparity, gt, 2.0, mask=em).item(),
+        "epe": end_point_error(out.disparity, gt, mask=em).item(),
+        "density": ((out.valid & matchable).float().mean() / matchable.float().mean()).item(),
+    }
+    emit({"phase": "float_golden", "dtype": "float32", "metrics": got, "reference": FLOAT_GOLDEN,
+          "tolerance": FLOAT_GOLDEN_TOL,
+          "eval_r03": {m: eval_r03[m] for m in FLOAT_GOLDEN if m in eval_r03}, **tag})
+    off = {m: abs(got[m] - want) for m, want in FLOAT_GOLDEN.items()
+           if abs(got[m] - want) > FLOAT_GOLDEN_TOL}
+    if off:
+        fail(f"float golden metrics off the reference by {off}")
 
     # ---- 6. timing ------------------------------------------------------------
     h, w, D = BENCH_SHAPE
@@ -700,13 +913,102 @@ def main() -> None:
         if case[0] == "two_view_warp":
             k9["ms"], k9["plain_ms"] = k_ms, p_ms
 
+    # ---- 6d. float timing -------------------------------------------------------
+    h, w, D = BENCH_SHAPE
+    for dtype in ("int8", "float32", "float32", "int8"):  # in turns
+        cc = CostConfig(num_disparities=D, census_window=(7, 9), dtype=dtype)
+        sc = float_sgm if dtype == "float32" else bench_cfg[1]
+        ms = cuda_ms(torch, lambda: two_view_disparity(*bench_pair, cc, sc), TIMED_FRAMES)
+        emit({"phase": "timing", "metric": "two_view_ms_per_frame", "shape": [h, w, D],
+              "dtype": dtype, "uniqueness": sc.uniqueness, "lr_max_diff": sc.lr_max_diff,
+              "frames": TIMED_FRAMES, "ms_per_frame": ms, "mp_per_s": h * w / 1e6 / (ms / 1e3),
+              **tag})
+    cc = CostConfig(num_disparities=D, census_window=(7, 9), dtype="float32")
+    plain_ms = cuda_ms(torch, lambda: two_view_disparity(*bench_pair, cc, float_sgm,
+                                                         backend="torch"), PLAIN_FRAMES, warmup=1)
+    emit({"phase": "timing", "metric": "two_view_ms_per_frame", "shape": [h, w, D],
+          "dtype": "float32", "plain_frames": PLAIN_FRAMES, "plain_ms_per_frame": plain_ms, **tag})
+    ms = cuda_ms(torch, lambda: array_depth_pipeline(images, cams, zncc_cfg), ARRAY_FRAMES)
+    plain_ms = cuda_ms(torch, lambda: array_depth_pipeline(images, cams, zncc_cfg,
+                                                           backend="torch"), 1, warmup=1)
+    emit({"phase": "timing", "metric": "array_zncc_ms_per_frame_set", "run": "cross_zncc",
+          "shape": [rows * cols, AH, AW, AD], "frames": ARRAY_FRAMES, "ms_per_frame_set": ms,
+          "plain_frames": 1, "plain_ms_per_frame_set": plain_ms, **tag})
+    ftotal = sgm_aggregate_float(fvol, fp2_y, fp2_x, 8.0)
+    float_calls = {
+        k6["name"]: lambda b: extract_disparity_maps(ftotal, True, 0.95, 1.5, b),
+        k7["name"]: lambda b: sgm_aggregate_float(fvol, fp2_y, fp2_x, 8.0, 8, backend=b),
+        **api_runs,
+    }
+    for k in float_kernels:
+        call = float_calls[k["name"]]
+        k["ms"] = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        k["plain_ms"] = cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1)
+        emit({"phase": "timing", "kernel": k["name"], "shape": [h, w, D], "dtype": "float32",
+              "iters": TIMED_FRAMES, "ms": k["ms"], "plain_iters": PLAIN_FRAMES,
+              "plain_ms": k["plain_ms"], **tag})
+    # K6 without the LR check (raw WTA, the wdh route): the right view is skipped
+    call = lambda b: extract_disparity_maps(ftotal, True, 0.0, 0.0, b)  # noqa: E731
+    emit({"phase": "timing", "kernel": k6["name"], "variant": "no_lr", "shape": [h, w, D],
+          "dtype": "float32", "iters": TIMED_FRAMES, "ms": cuda_ms(torch, lambda: call("cuda"),
+                                                                    TIMED_FRAMES),
+          "plain_iters": PLAIN_FRAMES,
+          "plain_ms": cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1), **tag})
+
+    # one PyTorch library call computing the same function, where there is one
+    rng = np.random.default_rng(2)
+    disp_r = torch.from_numpy(rng.uniform(0, D - 1, (h, w)).astype(np.float32)).cuda()
+    src_col = torch.from_numpy(rng.integers(0, w, (h, w))).cuda()
+    kernels[3]["library"] = ("torch.gather", cuda_ms(
+        torch, lambda: torch.gather(disp_r, 1, src_col), TIMED_FRAMES))
+    values = torch.from_numpy(rng.uniform(0, 255, (1, 1, CH, CW)).astype(np.float32)).cuda()
+    grid = torch.from_numpy(rng.uniform(-1, 1, (1, CH, CW, 2)).astype(np.float32)).cuda()
+    k9["library"] = ("torch.nn.functional.grid_sample", cuda_ms(
+        torch, lambda: torch.nn.functional.grid_sample(values, grid, "bilinear", "border",
+                                                       align_corners=True), TIMED_FRAMES))
+
+    # bound: the larger of the bytes the function must move (each input read
+    # once, each output written once) over HBM bandwidth and its scalar
+    # operations over the float32 peak, at the shape of each timing above.
+    # Operations per element: K1 two per census word plus 14 for BT and the
+    # store; K2/K3/K7-K12 8 per path step (neighbour and jump minima, P1 add,
+    # two subtractions and adds) plus one add per path in a combine; K4/K6 6
+    # per volume element (two views' compare and select, the second best);
+    # K8 60 per pixel, plane and source (bilinear warp, 24 census compares
+    # and packs, xor and popcount); K5 4 and K9 12 per pixel.
+    HW, HWD = h * w, h * w * D
+    bounds = {
+        "K1 cost_volume": (2 * HW * 4 + HWD, HWD * 16),
+        "K2/K3 sgm_paths": (HWD + 2 * HW * 2 + HWD * 2, 8 * HWD * 8),
+        "K4 extract_maps": (HWD * 2 + HW * 17, HWD * 6),
+        "K5 lr_gather": (HW * 12, HW * 4),
+        "K8 plane_sweep": (5 * AH * AW * 4 + 4 * AD * 8 + AH * AW * AD * 8,
+                           4 * AH * AW * AD * 60),
+        "K9 hat_sample": (CH * CW * 16 + CW * 4, CH * CW * 12),
+        k6["name"]: (HWD * 4 + HW * 13, HWD * 6 + HW * 4),
+        k7["name"]: (HWD * 8 + 2 * HW * 4, 8 * HWD * 8 + 7 * HWD),
+        k10["name"]: (HWD * 8 + HW * 4, 8 * HWD * 8 + 7 * HWD),
+        k11["name"]: (HWD * 12 + HW * 4, 6 * HWD * 8 + 4 * HWD),
+        k12["name"]: (HWD * 4 + 2 * HW * 4 + HW * 13, 8 * HWD * 8 + 13 * HWD),
+    }
+    for k in all_kernels:
+        nbytes, ops = bounds[k["name"]]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        k["bound_ms"], k["bound_by"] = max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "operations")
+
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"],
-                       "launches": k["launches"] + k["array_launches"] + k["cascade_launches"],
+                       "launches": (k["launches"] + k["array_launches"] + k["cascade_launches"]
+                                    + k["float_launches"]),
                        "launches_by_path": {"two_view": k["launches"],
                                             "array": k["array_launches"],
-                                            "cascade": k["cascade_launches"]},
-                       "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+                                            "cascade": k["cascade_launches"],
+                                            "float": k["float_launches"]},
+                       "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                       "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                       "library_ms": k["library"][1] if "library" in k else None,
+                       "library_call": k["library"][0] if "library" in k else None}
                       for k in all_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

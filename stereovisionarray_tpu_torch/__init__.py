@@ -10,13 +10,16 @@ the same function:
  - a CUDA tensor launches the kernel (or raises);
  - a CPU tensor runs the plain version;
  - ``backend="torch"`` runs the plain version on any device (kernel parity
-   checks on the card).
+   checks on the card);
+ - ``backend="xla"`` runs the plain twin of the reference's XLA oracle route
+   (float scans, edge-clamped extraction) and launches no kernel.
 
-The configuration tree is the reference's own: ``stereovisionarray_tpu.config``
-is stdlib-only, so importing it pulls in no JAX. This package never imports
-JAX.
+The configuration tree (``config.py``) is a copy of the reference's, so a
+reference configuration carries across as
+``config.EngineConfig.from_dict(jax_cfg.to_dict())``. This package imports
+neither JAX nor anything of ``stereovisionarray_tpu``.
 """
 
 __version__ = "0.1.0"
 
-from stereovisionarray_tpu import config as config  # noqa: F401
+from stereovisionarray_tpu_torch import config as config  # noqa: F401

@@ -43,11 +43,17 @@ _SIGNATURES = {
     "svt_cost_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     # cost, cost_bytes, p2_y, p2_x, total32, h, w, n_disp, p1, num_paths, stream
     "svt_sgm_paths": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # total, h, w, n_disp, subpixel, uniqueness,
+    # cost, p2_y, p2_x, partial, h, w, n_disp, p1, path_mask, stream
+    "svt_sgm_paths_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # partial, out, h, w, n_disp, path_mask, num_paths, sweep_mask, order, stream
+    "svt_sgm_combine_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # total, total_bytes, h, w, n_disp, subpixel, uniqueness,
     # disp_l, cost, valid, second, disp_r, stream
-    "svt_extract_maps": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     # disp_l, disp_r, at, h, w, n_disp, stream
     "svt_lr_gather": (_P, _P, _P, _I, _I, _I, _P),
+    # disp_l, disp_r, valid, lr_max_diff, h, w, n_disp, stream
+    "svt_lr_check": (_P, _P, _P, _F, _I, _I, _I, _P),
     # ref, src, shifts, fused, nviews, n_src, h, w, n_planes, patch, mode, topk, stream
     "svt_plane_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # values, t, aux, out, aux_out, batch, h, w, k0, k1, along_rows, stream

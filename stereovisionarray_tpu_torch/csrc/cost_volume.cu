@@ -1,5 +1,5 @@
 // K1: census + Birchfield-Tomasi matching cost, stored as an (H, W, D)
-// int8 or int16 volume.
+// int8, int16 or float32 volume.
 //
 // Replaces stereovisionarray_tpu/ops/cost_pallas.py::_wdh_kernel (via
 // fused_cost_volume_pallas_wdh) and ::_cost_kernel (via
@@ -11,8 +11,12 @@
 // cost[y, x, d] = popcount(census_L(y, x) ^ census_R(y, x - d))
 //               + bt_weight * min(BT_lr, BT_rl, bt_clip),
 // x < d -> worst = n_bits + bt_weight * bt_clip; stored round(cost * scale)
-// (half to even: __float2int_rn). The half-pixel BT bounds wrap around the
-// row (x = 0 reads x = W - 1), as the reference's jnp.roll does. Built with
+// (half to even: __float2int_rn), or as it is in a float32 volume (the
+// reference builds that one in XLA; no TPU kernel stands behind it, but
+// without this store the float route would run the plain PyTorch cost
+// volume, tens of milliseconds on an H100 at 540x768x64). The half-pixel BT
+// bounds wrap around the row (x = 0 reads x = W - 1), as the reference's
+// jnp.roll does. Built with
 // -fmad=false so `ham + bt_weight * bt` rounds twice, as the reference does.
 //
 // What bounds it on the H100: at 540x768x64 int8 the volume write is 26.5 MB
@@ -65,6 +69,17 @@ __device__ void half_pixel_bounds(const float* __restrict__ row, int w, int x, f
   *v = c;
   *mn = fminf(fminf(lh, rh), c);
   *mx = fmaxf(fmaxf(lh, rh), c);
+}
+
+// the stored cost: round(cost * scale) for integer volumes, the cost itself
+// (scale 1, no rounding) for float32 ones
+template <typename OutT>
+__device__ __forceinline__ OutT store_cost(float cost, float scale) {
+  return static_cast<OutT>(__float2int_rn(cost * scale));
+}
+template <>
+__device__ __forceinline__ float store_cost<float>(float cost, float) {
+  return cost;
 }
 
 template <typename OutT>
@@ -122,7 +137,7 @@ cost_volume_kernel(const float* __restrict__ left, const float* __restrict__ rig
         cost = cost + bt_weight * fminf(fminf(d_lr, d_rl), bt_clip);
       }
     }
-    out_row[static_cast<size_t>(x) * n_disp + d] = static_cast<OutT>(__float2int_rn(cost * scale));
+    out_row[static_cast<size_t>(x) * n_disp + d] = store_cost<OutT>(cost, scale);
   }
 }
 
@@ -152,13 +167,14 @@ SVT_API const char* svt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// left/right: (H, W) float32; out: (H, W, D) int8 (out_bytes 1) or int16 (2).
+// left/right: (H, W) float32; out: (H, W, D) int8 (out_bytes 1), int16 (2)
+// or float32 (4, stored unscaled).
 SVT_API int svt_cost_volume(const void* left, const void* right, void* out, int out_bytes,
                             int h, int w, int n_disp, int win_h, int win_w, float bt_weight,
                             float bt_clip, float worst, float scale, void* stream) {
   const int n_words = (win_h * win_w - 1 + 63) / 64;
   if (h <= 0 || w <= 0 || n_disp <= 0 || win_h % 2 == 0 || win_w % 2 == 0 ||
-      n_words > kMaxWords || (out_bytes != 1 && out_bytes != 2))
+      n_words > kMaxWords || (out_bytes != 1 && out_bytes != 2 && out_bytes != 4))
     return cudaErrorInvalidValue;
   const auto* l = static_cast<const float*>(left);
   const auto* r = static_cast<const float*>(right);
@@ -166,6 +182,9 @@ SVT_API int svt_cost_volume(const void* left, const void* right, void* out, int 
   if (out_bytes == 1)
     return launch<int8_t>(l, r, out, h, w, n_disp, win_h / 2, win_w / 2, n_words, bt_weight,
                           bt_clip, worst, scale, s);
+  if (out_bytes == 4)
+    return launch<float>(l, r, out, h, w, n_disp, win_h / 2, win_w / 2, n_words, bt_weight,
+                         bt_clip, worst, scale, s);
   return launch<int16_t>(l, r, out, h, w, n_disp, win_h / 2, win_w / 2, n_words, bt_weight,
                          bt_clip, worst, scale, s);
 }

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from stereovisionarray_tpu.config import EngineConfig
+from stereovisionarray_tpu_torch.config import EngineConfig
 from stereovisionarray_tpu_torch.backend import resolve_backend
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.topology import PairTopology, camera_pairs

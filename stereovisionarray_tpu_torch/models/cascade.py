@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from stereovisionarray_tpu.config import CostConfig, SGMConfig
+from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
 from stereovisionarray_tpu_torch.models.cascade_sweep import (
     area_downsample,
     box_mean,

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from stereovisionarray_tpu.config import PlaneSweepConfig, SGMConfig
+from stereovisionarray_tpu_torch.config import PlaneSweepConfig, SGMConfig
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples
 from stereovisionarray_tpu_torch.models.plane_sweep import (

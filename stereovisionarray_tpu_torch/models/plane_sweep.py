@@ -9,19 +9,23 @@ Routes, as in the reference:
 
  - census cost, mean or top-k fusion, translation-only rig (``shift_pad >
    0``): the fused sweep K8 (``ops/sweep_cuda.py``; the kernel on a CUDA
-   tensor, its plain twin on the CPU or with ``backend="torch"``);
+   tensor, its plain twin on the CPU or with ``backend="torch"``; the chain
+   below with ``backend="xla"``);
  - any other translation-rig sweep (``fusion="min"``, SAD or ZNCC costs):
    the per-plane chain of shift warp, per-view cost and fusion, plain
    PyTorch on every device (the reference runs it in XLA);
  - a general rig (``shift_pad == 0``): the same chain over plane
    homographies.
 
-:func:`_volume_to_maps` quantizes the fused volume (``round(vol * 4)``, int8
-when the scaled ceiling fits, else int16; ``round(vol * 512)`` for ZNCC) and
-runs the SGM path scans K2/K3 and the extraction maps K4. Volumes whose
-penalties do not quantize, and ``sgm_cfg=None``, need the float aggregation
-K7 and the standalone extraction K6, which are not ported: on a CUDA tensor
-they raise, on the CPU they run the plain port of the reference's XLA branch.
+:func:`_volume_to_maps` follows the reference's Pallas branch. It quantizes
+the fused volume (``round(vol * 4)``, int8 when the scaled ceiling fits, else
+int16; ``round(vol * 512)`` for ZNCC) and runs the SGM path scans K2/K3 and
+the extraction maps K4. Penalties that do not quantize (ZNCC under the default
+SGM: 8 * (2 + 96) * 512 > 30000) run float SGM (K7, the ``wdh`` order of the
+reference's ``sgm_extract_fused_wdh``) and the standalone extraction K6;
+``sgm_cfg=None`` runs K6 alone (raw WTA) on the quantized volume. With
+``backend="xla"`` the volume comes from the per-plane chain and the maps from
+the plain twin of the reference's XLA branch (float SGM, WTA, parabola).
 """
 
 from __future__ import annotations
@@ -31,15 +35,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from stereovisionarray_tpu.config import PlaneSweepConfig, SGMConfig
+from stereovisionarray_tpu_torch.config import PlaneSweepConfig, SGMConfig
 from stereovisionarray_tpu_torch.backend import resolve_backend
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples
 from stereovisionarray_tpu_torch.ops.census import census_transform, hamming_distance
 from stereovisionarray_tpu_torch.ops.confidence import confidence_from_volume, pkrn_confidence
-from stereovisionarray_tpu_torch.ops.extract_cuda import extract_maps
+from stereovisionarray_tpu_torch.ops.extract_cuda import extract_disparity_maps, extract_maps
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps, sgm_aggregate, sum_dtype
-from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
+from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_aggregate_paths
 from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census, reciprocal_f32
 from stereovisionarray_tpu_torch.ops.warp import homography_warp
 from stereovisionarray_tpu_torch.ops.wta import subpixel_refine, winner_take_all
@@ -239,7 +243,7 @@ def plane_sweep_volume(
     depths = np.asarray(depths, dtype=np.float32)
     depths_t = torch.from_numpy(depths).to(images.device)
     src_images = images[src].contiguous()
-    resolve_backend(images, backend)  # validates the backend against the device
+    xla = resolve_backend(images, backend) == "xla"  # also validates against the device
     if shifts is not None and shift_pad <= 0:
         raise ValueError("explicit shifts require the translation fast path (shift_pad > 0)")
 
@@ -255,7 +259,7 @@ def plane_sweep_volume(
     S = len(src)
     mean_fusion = cfg.fusion == "mean" or (cfg.fusion == "topk_mean" and cfg.topk >= S)
     kernel_topk = (int(cfg.topk) if cfg.fusion == "topk_mean" and 1 <= cfg.topk < S else None)
-    if cfg.cost == "census" and (mean_fusion or kernel_topk is not None):
+    if cfg.cost == "census" and (mean_fusion or kernel_topk is not None) and not xla:
         vol, nv = plane_sweep_census(ref, src_images, shifts, patch=cfg.patch,
                                      valid_mean=cfg.fusion == "mean", topk=kernel_topk,
                                      backend=backend)
@@ -267,39 +271,46 @@ def plane_sweep_volume(
 def _volume_to_maps(vol: torch.Tensor, ref_image: torch.Tensor, cfg: PlaneSweepConfig,
                     sgm_cfg: Optional[SGMConfig], backend: str):
     """(H, W, D) fused cost volume -> (k fractional plane, cost, PKRN
-    confidence, k_int), each (H, W)."""
+    confidence, k_int), each (H, W), as the reference's Pallas branch
+    (or, with ``backend="xla"``, its XLA branch) computes them."""
+    D = vol.shape[-1]
+    if resolve_backend(vol, backend) == "xla":
+        if sgm_cfg is not None:
+            vol = sgm_aggregate(vol, sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.num_paths, ref_image,
+                                sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
+        k_int, cost = winner_take_all(vol)
+        return subpixel_refine(vol, k_int), cost, confidence_from_volume(vol, k_int), k_int
+
     scale = ZNCC_COST_SCALE if cfg.cost == "zncc" else PLANE_COST_SCALE
     ceiling = float(cfg.patch * cfg.patch - 1) if cfg.cost == "census" else CEILINGS[cfg.cost]
     pens = (sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.p2_min) if sgm_cfg is not None else ()
     quantize = all(round(p * scale) >= 1 for p in pens if p > 0) and (
         8 * (ceiling + max(pens, default=0.0)) * scale < 30000)
-    D = vol.shape[-1]
-    if sgm_cfg is not None and quantize:
+    if quantize:
         pen = lambda v: round(v * scale)  # noqa: E731  (Python round: half to even)
         vol_dtype = torch.int8 if round(ceiling * scale) <= 127 else torch.int16
         q = torch.round(vol * scale).to(vol_dtype)
+    else:
+        scale = 1
+        pen = lambda v: v  # noqa: E731
+        q = vol.to(torch.float32).contiguous()
+    if sgm_cfg is None:  # raw WTA over the (quantized) volume: K6
+        maps = extract_disparity_maps(q, True, 0.0, 0.0, backend)
+    else:
         h, w = ref_image.shape
-        p2_y, p2_x = p2_maps((h, w), pen(sgm_cfg.p2), sum_dtype(vol_dtype), vol.device,
-                             ref_image, sgm_cfg.adaptive_p2, pen(sgm_cfg.p2_min))
-        total = sgm_aggregate_paths(q, p2_y, p2_x, pen(sgm_cfg.p1), sgm_cfg.num_paths, backend)
-        maps = extract_maps(total, True, 0.0, backend)
-        k = maps.disparity
-        k_int = torch.round(k).to(torch.int32).clamp(0, D - 1)
-        return k, maps.cost / scale, pkrn_confidence(maps.cost, maps.second), k_int
-
-    if resolve_backend(vol, backend) == "cuda":
-        if sgm_cfg is None:
-            raise NotImplementedError(
-                "sgm_cfg=None on CUDA needs the standalone extraction kernel K6 "
-                "(ROADMAP.md queue 1 item 4a)")
-        raise NotImplementedError(
-            "plane-sweep penalties that do not quantize need the float aggregation "
-            "kernel K7 on CUDA (ROADMAP.md queue 1 item 4a)")
-    if sgm_cfg is not None:
-        vol = sgm_aggregate(vol, sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.num_paths, ref_image,
-                            sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
-    k_int, cost = winner_take_all(vol)
-    return subpixel_refine(vol, k_int), cost, confidence_from_volume(vol, k_int), k_int
+        p2_y, p2_x = p2_maps((h, w), pen(sgm_cfg.p2), sum_dtype(q.dtype), vol.device, ref_image,
+                             sgm_cfg.adaptive_p2, pen(sgm_cfg.p2_min))
+        if quantize:  # integer total (K2/K3): K4
+            total = sgm_aggregate_paths(q, p2_y, p2_x, pen(sgm_cfg.p1), sgm_cfg.num_paths,
+                                        backend)
+            maps = extract_maps(total, True, 0.0, backend)
+        else:  # float total (K7, wdh order): K6
+            total = sgm_aggregate_float(q, p2_y, p2_x, sgm_cfg.p1, sgm_cfg.num_paths,
+                                        order="wdh", backend=backend)
+            maps = extract_disparity_maps(total, True, 0.0, 0.0, backend)
+    k = maps.disparity
+    k_int = torch.round(k).to(torch.int32).clamp(0, D - 1)
+    return k, maps.cost / scale, pkrn_confidence(maps.cost, maps.second), k_int
 
 
 def plane_sweep_depth(

@@ -5,10 +5,15 @@ Integer costs (int16 at scale 4, int8 at scale 1) run the reference's
 integer fast path: census/BT cost volume (K1) -> 4/8-path SGM (K2/K3) ->
 WTA, subpixel, uniqueness and right-view maps (K4) -> left-right gather (K5)
 -> PKRN confidence -> optional post-filters (median, speckle, hole fill;
-``ops/postfilter.py``) -> guarded depth. On a CUDA tensor every stage with a
-kernel launches it; on a CPU tensor the plain PyTorch twins run, bit-exact to
-the reference's ``backend="pallas"`` path. float32 costs run the plain twin of
-the reference's XLA path, on the CPU only for now.
+``ops/postfilter.py``) -> guarded depth. float32 costs run the reference's
+float Pallas route: float cost volume (K1) -> float SGM summed in the
+reference's order (K7, ``order="k7"``) -> standalone extraction with the
+in-volume LR check (K6) -> the same post-filters. On a CUDA tensor every
+stage with a kernel launches it; on a CPU tensor (or ``backend="torch"``) the
+plain PyTorch twins run, bit-exact to the reference's
+``backend="pallas_interpret"`` path. ``backend="xla"`` runs the plain twin of
+the reference's XLA oracle route (float scans and edge-clamped extraction;
+integer cost dtypes compute in float32 there, as in the reference).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from stereovisionarray_tpu.config import CostConfig, SGMConfig
+from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
 from stereovisionarray_tpu_torch.backend import resolve_backend
 from stereovisionarray_tpu_torch.ops.confidence import pkrn_confidence
 from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
@@ -28,10 +33,15 @@ from stereovisionarray_tpu_torch.ops.cost_volume import (
     int8_cost_fits,
     right_from_left_volume,
 )
-from stereovisionarray_tpu_torch.ops.extract_cuda import BIG_FLOAT, extract_maps, lr_gather
+from stereovisionarray_tpu_torch.ops.extract_cuda import (
+    BIG_FLOAT,
+    extract_disparity,
+    extract_maps,
+    lr_gather,
+)
 from stereovisionarray_tpu_torch.ops.postfilter import fill_holes, median3x3, speckle_filter
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps, sgm_aggregate, sum_dtype
-from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
+from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_aggregate_paths
 from stereovisionarray_tpu_torch.ops.wta import (
     INVALID_DISPARITY,
     DisparityResult,
@@ -114,7 +124,21 @@ def _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend) -> Dispari
     )
 
 
-def _float_path(left, right, cost_cfg, sgm_cfg, mask) -> DisparityResult:
+def _float_path(left, right, cost_cfg, sgm_cfg, mask, backend) -> DisparityResult:
+    """The reference's float Pallas route: K1 float -> K7 -> K6."""
+    vol = fused_cost_volume_cuda(left, right, cost_cfg.num_disparities, cost_cfg.census_window,
+                                 cost_cfg.bt_weight, cost_cfg.bt_clip, torch.float32, backend)
+    p2_y, p2_x = p2_maps(left.shape, sgm_cfg.p2, torch.float32, left.device, left,
+                         sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
+    total = sgm_aggregate_float(vol, p2_y, p2_x, sgm_cfg.p1, sgm_cfg.num_paths, order="k7",
+                                backend=backend)
+    return extract_disparity(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0),
+                             max(sgm_cfg.lr_max_diff, 0.0), mask, backend)
+
+
+def _xla_path(left, right, cost_cfg, sgm_cfg, mask) -> DisparityResult:
+    """The reference's XLA oracle route: float scans summed in path order,
+    edge-clamped right view."""
     vol = fused_cost_volume(left, right, cost_cfg.num_disparities, cost_cfg.census_window,
                             cost_cfg.bt_weight, cost_cfg.bt_clip, torch.float32)
     agg = sgm_aggregate(vol, sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.num_paths, left,
@@ -137,17 +161,15 @@ def two_view_disparity(
     """Full rectified two-view pipeline on (H, W) grayscale images.
 
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
-    tensors), "cuda" (kernels, CUDA tensors only) or "torch" (plain PyTorch
-    on any device)."""
-    pen = scaled_penalties(cost_cfg, sgm_cfg, cost_cfg.dtype)
+    tensors), "cuda" (kernels, CUDA tensors only), "torch" (plain PyTorch
+    on any device) or "xla" (the plain twin of the reference's XLA route)."""
     left = left.to(torch.float32).contiguous()
     right = right.to(torch.float32).contiguous()
-    if pen.dtype == torch.float32:
-        if resolve_backend(left, backend) == "cuda":
-            raise NotImplementedError(
-                "float32 costs on CUDA need the float aggregation and extraction "
-                "kernels K6/K7 (ROADMAP.md queue 1 item 4a); use an int8 or int16 CostConfig")
-        res = _float_path(left, right, cost_cfg, sgm_cfg, mask)
+    pen = scaled_penalties(cost_cfg, sgm_cfg, cost_cfg.dtype)
+    if resolve_backend(left, backend) == "xla":
+        res = _xla_path(left, right, cost_cfg, sgm_cfg, mask)
+    elif pen.dtype == torch.float32:
+        res = _float_path(left, right, cost_cfg, sgm_cfg, mask, backend)
     else:
         res = _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend)
 

@@ -73,7 +73,7 @@ def hat_sample(values: torch.Tensor, t: torch.Tensor, k0: int, k1: int,
                aux: Optional[torch.Tensor] = None, axis: int = -1, backend: str = "auto"):
     """K9: values, t (H, W) or (B, H, W) float32; aux (W,) or None. Returns
     ``out`` or ``(out, aux_out)``, each of t's shape."""
-    if resolve_backend(values, backend) == "torch":
+    if resolve_backend(values, backend) != "cuda":
         return hat_sample_plain(values, t, k0, k1, aux, axis)
     _validate(values, t, k0, k1, aux, axis)
     shape = tuple(values.shape)

@@ -150,7 +150,7 @@ def plane_sweep_census(ref: torch.Tensor, src_images: torch.Tensor, shifts: torc
                        backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """K8: ref (H, W), src_images (S, H, W), shifts (D, S, 2) float32 ->
     (fused (H, W, D) float32, nviews (H, W, D) int32)."""
-    if resolve_backend(ref, backend) == "torch":
+    if resolve_backend(ref, backend) != "cuda":
         return plane_sweep_census_plain(ref, src_images, shifts, patch, valid_mean, topk)
     _validate(ref, src_images, shifts, patch, valid_mean, topk)
     if topk is not None and topk > MAX_TOPK:

@@ -7,7 +7,10 @@ K8 over 1 to 24 sources, every fusion (plain mean, valid mean, top-k from 1
 to S-1), patch 3 to 17, odd shapes and 1 to 256 planes; K2/K3 and K4 at
 D=128 on a quantized plane volume; the hat sampler K9 over tap ranges from
 one tap to 99, batches, both axes, the aux table, ragged shapes and t far
-outside the range.
+outside the range; the float kernels: K1's float32 store, the float SGM scans
+and ordered combine (K7, every order and sweep subset, 4 and 8 paths, every
+lanes-per-warp width, and the K10-K12 entry points over them), and the
+extraction K6 over float32, int8 and int16 volumes with uniqueness and LR.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -20,10 +23,21 @@ import pytest
 import torch
 
 from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
-from stereovisionarray_tpu_torch.ops.extract_cuda import extract_maps, lr_gather
+from stereovisionarray_tpu_torch.ops.extract_cuda import (
+    extract_disparity,
+    extract_disparity_maps,
+    extract_maps,
+    lr_gather,
+)
 from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
-from stereovisionarray_tpu_torch.ops.sgm import p2_maps
-from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_paths
+from stereovisionarray_tpu_torch.ops.sgm import ORDERS, p2_maps
+from stereovisionarray_tpu_torch.ops.sgm_cuda import (
+    sgm_aggregate_float,
+    sgm_aggregate_hwd,
+    sgm_aggregate_paths,
+    sgm_extract_fused,
+    sweep_pair,
+)
 from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
 
 pytestmark = pytest.mark.gpu
@@ -54,6 +68,9 @@ def _same(got, want):
     (9, 70, 100, (11, 13), 0.25, "int16"),  # 142 bits: three words; D > W
     (6, 300, 256, (15, 17), 0.5, "int16"),  # 254 bits: four words
     (1, 1, 8, (7, 9), 0.25, "int16"),  # one pixel
+    (20, 129, 64, (7, 9), 0.25, "float32"),  # float32 store: unscaled, no rounding
+    (9, 70, 100, (11, 13), 0.3, "float32"),  # out-of-image cost in float32 arithmetic
+    (17, 50, 3, (3, 3), 0.0, "float32"),
 ])
 def test_cost_volume_kernel(rng, h, w, D, window, bt_weight, dtype):
     img = np.floor(rng.uniform(0, 256, (h, w + 8))).astype(np.float32)
@@ -163,3 +180,94 @@ def test_hat_sample_kernel(rng, shape, axis, aux, k0, k1):
     got = call("cuda")
     _same(got, call("torch"))
     assert (got[0] if aux else got).shape == tuple(shape)
+
+
+def _float_volume(rng, h, w, D):
+    vol = rng.uniform(0.0, 60.0, (h, w, D)).astype(np.float32)
+    vol[0, :, :] = np.round(vol[0])  # integer costs: exact ties in the sums
+    return _cuda(vol)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("num_paths", [4, 8])
+@pytest.mark.parametrize("h,w,D", [(13, 37, 3), (11, 40, 32), (9, 21, 33), (16, 16, 64),
+                                   (7, 30, 100), (6, 11, 256), (1, 25, 20), (24, 1, 20)])
+def test_float_sgm_kernel(rng, h, w, D, num_paths, order):
+    """K7: the float scans and the ordered combine, every order."""
+    vol = _float_volume(rng, h, w, D)
+    image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
+    p2_y, p2_x = p2_maps((h, w), 32.0, torch.float32, vol.device, image, True, 8.0)
+    call = lambda b: sgm_aggregate_float(vol, p2_y, p2_x, 4.0, num_paths, order=order,  # noqa: E731
+                                         backend=b)
+    _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("sweeps", [("down",), ("up",), ("lr",), ("rl",), ("down", "up"),
+                                    ("lr", "rl"), ("up", "rl"), ("down", "up", "lr")])
+def test_float_sgm_kernel_sweep_subsets(rng, sweeps):
+    vol = _float_volume(rng, 19, 45, 48)
+    p2 = _cuda(rng.uniform(8.0, 32.0, (19, 45)).astype(np.float32))
+    call = lambda b: sgm_aggregate_float(vol, p2, p2, 4.0, 8, sweeps, "k7", b)  # noqa: E731
+    _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("diagonals", [False, True])
+def test_k10_k11_k12_entry_points(rng, diagonals):
+    h, w, D = 21, 34, 40
+    num_paths = 8 if diagonals else 4
+    vol = _float_volume(rng, h, w, D)
+    image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
+    p2_y, p2_x = p2_maps((h, w), 32.0, torch.float32, vol.device, image, True, 8.0)
+    _same(sgm_aggregate_hwd(vol, 4.0, 32.0, num_paths, image, True, 8.0, "cuda"),
+          sgm_aggregate_hwd(vol, 4.0, 32.0, num_paths, image, True, 8.0, "torch"))
+    q = torch.round(vol * 4).to(torch.int16)
+    _same(sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "cuda"),
+          sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "torch"))
+    _same(sweep_pair(vol, p2_y, 4.0, diagonals, "cuda"), sweep_pair(vol, p2_y, 4.0, diagonals,
+                                                                     "torch"))
+    vt, pt = vol.transpose(0, 1).contiguous(), p2_x.t().contiguous()
+    _same(sweep_pair(vt, pt, 4.0, diagonals, "cuda"), sweep_pair(vt, pt, 4.0, diagonals, "torch"))
+    _same(sgm_extract_fused(vol, p2_y, p2_x, 4.0, num_paths, True, 0.95, 1.5, "cuda"),
+          sgm_extract_fused(vol, p2_y, p2_x, 4.0, num_paths, True, 0.95, 1.5, "torch"))
+    qy, qx = p2_maps((h, w), 128, torch.int16, vol.device, image, True, 32)
+    _same(sgm_extract_fused(q, qy, qx, 16, num_paths, True, 0.95, 1.5, "cuda"),
+          sgm_extract_fused(q, qy, qx, 16, num_paths, True, 0.95, 1.5, "torch"))
+
+
+def test_k10_k12_count_only_their_own_launches(rng):
+    """K10 and K12 launch the K7/K6 kernels through their own wrappers: each
+    call adds one to its own count and none to K7's or K6's."""
+    h, w, D = 9, 20, 16
+    vol = _float_volume(rng, h, w, D)
+    p2 = _cuda(rng.uniform(8.0, 32.0, (h, w)).astype(np.float32))
+    fns = (sgm_aggregate_float, sgm_aggregate_hwd, sgm_extract_fused, extract_disparity_maps)
+    for fn in fns:
+        fn.launches = 0
+    sgm_aggregate_hwd(vol, backend="cuda")
+    sgm_extract_fused(vol, p2, p2, 4.0, 8, True, 0.95, 1.5, "cuda")
+    assert [fn.launches for fn in fns] == [0, 1, 1, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "int16"])
+@pytest.mark.parametrize("h,w,D", [(12, 40, 16), (5, 7, 48), (3, 300, 3), (4, 130, 256)])
+def test_standalone_extraction_kernel(rng, h, w, D, dtype):
+    """K6 over raw and aggregated volumes of every dtype, with ties, winners at
+    both ends, costs above BIG, uniqueness, the LR check and a mask."""
+    if dtype == "float32":
+        a = rng.uniform(10.0, 400.0, (h, w, D)).astype(np.float32)
+        big = 2e9
+    else:
+        a = rng.integers(20, 120 if dtype == "int8" else 400, (h, w, D)).astype(dtype)
+        big = None if dtype == "int8" else 16500
+    a[0, :, 1] = a[0, :, D - 1] = 10  # exact tie: smallest d wins
+    a[1 % h, :, D - 1] = 5
+    if big is not None:
+        a[2 % h] = big
+    vol = _cuda(a)
+    mask = _cuda(rng.uniform(size=(h, w)) > 0.3)
+    for subpixel, uniqueness, lr in ((True, 0.0, 0.0), (True, 0.95, 1.5), (False, 0.95, 1.25),
+                                     (True, 0.0, 1.1)):
+        _same(extract_disparity_maps(vol, subpixel, uniqueness, lr, "cuda"),
+              extract_disparity_maps(vol, subpixel, uniqueness, lr, "torch"))
+    _same(extract_disparity(vol, True, 0.95, 1.5, mask, "cuda"),
+          extract_disparity(vol, True, 0.95, 1.5, mask, "torch"))

@@ -34,6 +34,12 @@ GOLDEN = {
     "int16": {"bad_2.0": 0.0073033, "epe": 0.2927659, "density": 0.9592620},
     "int8": {"bad_2.0": 0.0072615, "epe": 0.2922293, "density": 0.9592108},
 }
+# its float32 route (float cost -> sgm_aggregate_pallas_hdw ->
+# extract_disparity_hdw), computed with JAX on the CPU at full size
+# (test_float_golden_is_the_reference_route recomputes it); chip_smoke.py's
+# FLOAT_GOLDEN
+FLOAT_GOLDEN = {"bad_2.0": 0.007297772914171219, "epe": 0.2934589385986328,
+                "density": 0.9592484831809998}
 
 
 @pytest.fixture(scope="module")
@@ -142,8 +148,47 @@ def test_integer_path_bit_exact_on_fixture(pair, dtype):
 def test_float_path_reproduces_eval_record(pair):
     record = json.loads((REPO / "EVAL_r03.json").read_text())
     cc = CostConfig(num_disparities=pair.ndisp, census_window=(7, 9), dtype="float32")
-    got = two_view_disparity(torch.from_numpy(pair.left), torch.from_numpy(pair.right), cc, SGM)
+    got = two_view_disparity(torch.from_numpy(pair.left), torch.from_numpy(pair.right), cc, SGM,
+                             backend="xla")
     metrics = _metrics(got, pair)
     assert metrics["bad_2.0"] == pytest.approx(record["bad_2.0"], abs=2e-4)
     assert metrics["epe"] == pytest.approx(record["epe"], abs=1e-3)
     assert metrics["density"] == pytest.approx(record["density"], abs=5e-4)
+
+
+def _float_run(pair):
+    cc = CostConfig(num_disparities=pair.ndisp, census_window=(7, 9), dtype="float32")
+    return cc, two_view_disparity(torch.from_numpy(pair.left), torch.from_numpy(pair.right), cc,
+                                  SGM)
+
+
+def test_float_path_meets_float_golden(pair):
+    """The float route's plain twins (K1 float, K7, K6) on the full fixture."""
+    _, got = _float_run(pair)
+    metrics = _metrics(got, pair)
+    for name, value in FLOAT_GOLDEN.items():
+        assert metrics[name] == pytest.approx(value, abs=1e-6), name
+
+
+@pytest.mark.slow
+def test_float_golden_is_the_reference_route(pair):
+    """Recompute FLOAT_GOLDEN with the reference's pallas_interpret float
+    route at full size; the port is bit-exact to it."""
+    cc, got = _float_run(pair)
+    want = ref_two_view(jnp.asarray(pair.left), jnp.asarray(pair.right), cc, SGM,
+                        backend="pallas_interpret")
+    for name in ("disparity", "valid", "cost"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    gt = jnp.asarray(pair.gt_disparity)
+    x = jnp.arange(gt.shape[1])[None, :]
+    matchable = jnp.asarray(pair.valid_gt) & (x >= jnp.ceil(gt))
+    em = matchable & want.valid
+    ref = {
+        "bad_2.0": float(ref_bad(want.disparity, gt, 2.0, em)),
+        "epe": float(ref_epe(want.disparity, gt, em)),
+        "density": float(jnp.mean((want.valid & matchable).astype(jnp.float32))
+                         / jnp.mean(matchable.astype(jnp.float32))),
+    }
+    for name, value in FLOAT_GOLDEN.items():
+        assert ref[name] == pytest.approx(value, abs=1e-9), name

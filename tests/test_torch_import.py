@@ -25,7 +25,8 @@ def test_importing_every_module_leaves_jax_out():
         "import stereovisionarray_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'stereovisionarray_tpu' or m.startswith('stereovisionarray_tpu.'))\n"
         "print(len(bad), bad[:5])\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -62,11 +63,25 @@ def test_array_slice_module_leaves_jax_out(jax_after_import, module):
 
 
 def test_no_source_file_imports_jax():
+    """Neither the port's modules nor chip_smoke.py import JAX or anything of
+    the JAX package (config included: the port keeps its own copy)."""
+    offenders = [
+        str(path.relative_to(REPO))
+        for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+        for line in path.read_text().splitlines()
+        if line.strip().startswith(("import jax", "from jax", "import stereovisionarray_tpu ",
+                                    "import stereovisionarray_tpu.", "from stereovisionarray_tpu ",
+                                    "from stereovisionarray_tpu."))
+    ]
+    assert offenders == []
+
+
+def test_no_not_implemented_error_names_k6_or_k7():
     offenders = [
         str(path.relative_to(REPO))
         for path in PKG.rglob("*.py")
-        for line in path.read_text().splitlines()
-        if line.strip().startswith(("import jax", "from jax"))
+        if "NotImplementedError" in path.read_text() and any(
+            k in path.read_text() for k in ("K6", "K7", "item 4a"))
     ]
     assert offenders == []
 

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from stereovisionarray_tpu.config import EngineConfig, SGMConfig
+from stereovisionarray_tpu.config import EngineConfig
 from stereovisionarray_tpu.datasets import reference_rig as jax_rig
 from stereovisionarray_tpu.models import plane_sweep as jps
 from stereovisionarray_tpu.ops.sweep_pallas import plane_sweep_census_pallas
@@ -151,10 +151,12 @@ def test_homography_path_matches_xla():
 
 
 @pytest.mark.parametrize("cost,patch,dtype", [("census", 5, torch.int8), ("census", 7, torch.int16),
-                                              ("sad", 5, torch.int16)])
+                                              ("sad", 5, torch.int16), ("zncc", 5, torch.float32)])
 def test_volume_to_maps_bit_exact_to_pallas(monkeypatch, cost, patch, dtype):
     """Fed the reference's own fused volume, the quantized SGM route (K2/K3 +
-    K4 twins) equals the reference's pallas_interpret route bit for bit."""
+    K4 twins) equals the reference's pallas_interpret route bit for bit; so
+    does ZNCC under the default SGM, whose penalties do not quantize (float
+    K7 in the wdh order + K6 twins)."""
     images, cams, jcams, cfg, ref, src, pad = _rig(
         3, 3, 48, 64, 16, **{"plane_sweep.topology": "CROSS", "plane_sweep.cost": cost,
                              "plane_sweep.patch": patch})
@@ -163,14 +165,36 @@ def test_volume_to_maps_bit_exact_to_pallas(monkeypatch, cost, patch, dtype):
     want = jps._volume_to_maps(vol, jnp.asarray(images[ref]), cfg.plane_sweep, cfg.sgm,
                                "pallas_interpret")
     seen = []
-    real = ps.sgm_aggregate_paths
-    monkeypatch.setattr(ps, "sgm_aggregate_paths",
-                        lambda v, *a: seen.append(v.dtype) or real(v, *a))
+    for name in ("sgm_aggregate_paths", "sgm_aggregate_float"):
+        real = getattr(ps, name)
+        monkeypatch.setattr(ps, name, lambda v, *a, _real=real, **k: seen.append(v.dtype)
+                            or _real(v, *a, **k))
     got = ps._volume_to_maps(torch.from_numpy(np.array(vol)), torch.from_numpy(images[ref]),
                              cfg.plane_sweep, cfg.sgm, "auto")
     assert seen == [dtype]
     for name, a, b in zip(("k", "cost", "conf", "k_int"), got, want):
         assert a.numpy().dtype == np.asarray(b).dtype, name
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+
+@pytest.mark.parametrize("cost,dtype", [("census", torch.int8), ("zncc", torch.int16)])
+def test_volume_to_maps_without_sgm_bit_exact_to_pallas(monkeypatch, cost, dtype):
+    """sgm_cfg=None: raw WTA of the quantized volume through the K6 twin,
+    bit-exact to the reference's pallas_interpret route."""
+    images, cams, jcams, cfg, ref, src, pad = _rig(
+        3, 3, 48, 64, 16, **{"plane_sweep.topology": "CROSS", "plane_sweep.cost": cost})
+    vol, _, _ = jps.plane_sweep_volume(jnp.asarray(images), jcams, ref, src, cfg.plane_sweep,
+                                       shift_pad=pad, backend="xla")
+    want = jps._volume_to_maps(vol, jnp.asarray(images[ref]), cfg.plane_sweep, None,
+                               "pallas_interpret")
+    seen = []
+    real = ps.extract_disparity_maps
+    monkeypatch.setattr(ps, "extract_disparity_maps",
+                        lambda v, *a, **k: seen.append(v.dtype) or real(v, *a, **k))
+    got = ps._volume_to_maps(torch.from_numpy(np.array(vol)), torch.from_numpy(images[ref]),
+                             cfg.plane_sweep, None, "auto")
+    assert seen == [dtype]
+    for name, a, b in zip(("k", "cost", "conf", "k_int"), got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
 
 
@@ -187,21 +211,10 @@ def test_float_routes_match_xla_on_cpu(case):
                                                   sgm, "xla")
     k, c, conf, ki = ps._volume_to_maps(torch.from_numpy(np.array(vol)),
                                         torch.from_numpy(images[ref]), cfg.plane_sweep, sgm,
-                                        "auto")
+                                        "xla")
     assert (ki.numpy() == np.asarray(ki_w)).mean() > 0.99
     assert (np.abs(k.numpy() - np.asarray(k_w)) < 1e-3).mean() > 0.99
     np.testing.assert_allclose(conf.numpy(), np.asarray(conf_w), atol=1e-3)
-
-
-@pytest.mark.parametrize("sgm_cfg,kernel", [(None, "K6"), (SGMConfig(p1=1e-4), "K7")])
-def test_unported_kernels_raise_on_cuda(monkeypatch, sgm_cfg, kernel):
-    """On a CUDA tensor the routes that need K6 / K7 raise and name them
-    (emulated here by resolving every backend to "cuda")."""
-    monkeypatch.setattr(ps, "resolve_backend", lambda t, b="auto": "cuda")
-    cfg = EngineConfig().plane_sweep
-    vol = torch.zeros((4, 5, 8))
-    with pytest.raises(NotImplementedError, match=kernel):
-        ps._volume_to_maps(vol, torch.zeros((4, 5)), cfg, sgm_cfg, "auto")
 
 
 def test_plane_sweep_depth_matches_pallas_route():

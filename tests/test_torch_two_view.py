@@ -1,6 +1,6 @@
 """The port's two-view pipeline vs the JAX reference at a small shape: the
-integer path bit-exact to backend="pallas_interpret", float32 against the
-XLA path."""
+integer and float32 paths bit-exact to backend="pallas_interpret", and the
+port's backend="xla" against the reference's XLA path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,12 +29,12 @@ def scene():
     return left, right, mask
 
 
-def _both(scene, cc, sc, ref_backend, **kw):
+def _both(scene, cc, sc, ref_backend, port_backend="auto", **kw):
     left, right, mask = scene
     want = ref_two_view(jnp.asarray(left), jnp.asarray(right), cc, sc, mask=jnp.asarray(mask),
                         backend=ref_backend, **kw)
     got = two_view_disparity(torch.from_numpy(left), torch.from_numpy(right), cc, sc,
-                             mask=torch.from_numpy(mask), **kw)
+                             mask=torch.from_numpy(mask), backend=port_backend, **kw)
     return want, got
 
 
@@ -52,10 +52,24 @@ def test_integer_path_bit_exact_to_pallas(scene, dtype, num_paths):
 
 
 @pytest.mark.parametrize("num_paths", [4, 8])
+def test_float_path_bit_exact_to_pallas(scene, num_paths):
+    """float32 costs: K1 float -> K7 (the reference's sum order, its fused
+    row included) -> K6, as the reference's pallas_interpret route."""
+    cc = CostConfig(num_disparities=D, census_window=(5, 5), dtype="float32")
+    sc = SGMConfig(num_paths=num_paths, uniqueness=0.95, lr_max_diff=1.25)
+    want, got = _both(scene, cc, sc, "pallas_interpret", baseline=0.12, focal_px=700.0)
+    for name in ("disparity", "valid", "cost", "depth"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), atol=1e-6)
+    assert got.valid.any()
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
 def test_float_path_matches_xla(scene, num_paths):
     cc = CostConfig(num_disparities=D, census_window=(5, 5), dtype="float32")
     sc = SGMConfig(num_paths=num_paths, uniqueness=0.95, lr_max_diff=1.25)
-    want, got = _both(scene, cc, sc, "xla")
+    want, got = _both(scene, cc, sc, "xla", port_backend="xla")
     inner = np.s_[:, : W - D]
     vw, vg = np.asarray(want.valid)[inner], got.valid.numpy()[inner]
     np.testing.assert_array_equal(vg, vw)
