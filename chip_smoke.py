@@ -68,15 +68,28 @@ The float-cost slice adds, after the cascade phases each:
     1e-6 (EVAL_r03.json printed beside it, ungated);
  6d. float timing: two-view float32 ms/frame beside int8, the ZNCC array ms
     per frame-set, and K6, K7, K10-K12 beside their plain versions.
+The redesign of K5 and K9 changes, within the phases above:
+ 3. the extraction with K5's LR check fused into it (K4's launch; the row
+    "K5 lr_check fused") against its plain route, with and without the right
+    map, here on the integer totals and in 3d on int8, int16 and float32
+    volumes; the standalone K5 stays held to its plain version;
+ 3c. K9's 2-D form (the array pre-warp in one launch) against its plain
+    version and against two K9 launches;
+ 4-4d. a run also counts the C entry points it launched: the integer paths
+    launch no standalone K5 (svt_lr_gather) and one extraction per frame, K6
+    with LR is one launch, the array cascade's pre-warp is one 2-D K9 launch
+    and no 1-D one; the standalone K5 runs once as an entry point in 4d;
+ 6-6d. every kernel's device time beside its wrapper time (device_ms).
 The line before the last lists every kernel with its launches, parity error,
-time, plain time, bound (the larger of its bytes over 3.35 TB/s and its
-operations over 67 TFLOP/s) and the time of one PyTorch library call that
-computes the same function, where there is one; the last line is the result.
-Needs no network and no JAX.
+wrapper time, device time, plain time, bound (the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
+times of one PyTorch library call that computes the same function, where
+there is one; the last line is the result. Needs no network and no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -244,11 +257,38 @@ def stereo_pair(torch, h, w, seed, offset=32, integer=False):
 
 
 def max_err(torch, a, b) -> float:
-    if a.shape != b.shape or a.dtype != b.dtype:
-        fail(f"shape/dtype differ: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} {b.dtype}")
+    if a is None and b is None:  # a map both routes leave out
+        return 0.0
+    if a is None or b is None or a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"outputs differ in kind: {a if a is None else (tuple(a.shape), a.dtype)} vs "
+             f"{b if b is None else (tuple(b.shape), b.dtype)}")
     if torch.equal(a, b):
         return 0.0
     return (a.to(torch.float64) - b.to(torch.float64)).abs().max().item()  # NaN if only NaNs differ
+
+
+def device_ms(torch, fn, iters):
+    """Device ms of one fn() from `iters` calls queued behind a GPU spin
+    (``torch.cuda._sleep``), so that the two events bracket the device's work
+    and none of the host's. The spin doubles until the host has enqueued
+    every call before it ends; None if it never does."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()  # the spin still ran when the last call was enqueued
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    return None
 
 
 def cuda_ms(torch, fn, iters, warmup=2) -> float:
@@ -294,7 +334,7 @@ def main() -> None:
         cascade_disparity_metrics,
     )
     from stereovisionarray_tpu_torch.models.cascade import SMOOTH_R
-    from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
+    from stereovisionarray_tpu_torch.ops.hatsample import hat_sample, hat_sample_2d
     from stereovisionarray_tpu_torch.models.plane_sweep import plane_sweep_depth
     from stereovisionarray_tpu_torch.ops.extract_cuda import extract_disparity_maps
     from stereovisionarray_tpu_torch.ops.sgm import ORDERS
@@ -332,9 +372,22 @@ def main() -> None:
         {"name": "K5 lr_gather", "fn": lr_gather,
          "source": "stereovisionarray_tpu_torch/csrc/extract.cu",
          "replaces": "stereovisionarray_tpu/ops/extract_pallas.py:231"},
+        # K5's gather and the reference's LR test inside K4's / K6's launch
+        {"name": "K5 lr_check fused", "fn": lr_gather, "counter": "fused_launches",
+         "source": "stereovisionarray_tpu_torch/csrc/extract.cu",
+         "replaces": "stereovisionarray_tpu/ops/extract_pallas.py:231"},
     ]
+    k5, k5f = kernels[3], kernels[4]
     for k in kernels:
         k["max_abs_err"] = 0.0
+    # what the integer two-view path must launch; the standalone K5 it must not
+    integer_path = ["K1 cost_volume", "K2/K3 sgm_paths", "K4 extract_maps", k5f["name"]]
+
+    def count(k) -> int:
+        return getattr(k["fn"], k.get("counter", "launches"))
+
+    def zero(k) -> None:
+        setattr(k["fn"], k.get("counter", "launches"), 0)
 
     sgm_cfg = SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True,
                         uniqueness=0.95, lr_max_diff=1.5)
@@ -354,6 +407,8 @@ def main() -> None:
             lambda b: sgm_aggregate_paths(vol, p2_y, p2_x, pen.p1, num_paths, b),
             lambda b: extract_maps(total, True, 0.95, b),
             lambda b: lr_gather(maps.disparity, maps.disparity_right, D, b),
+            # the integer path's extraction: the LR check fused, no right map
+            lambda b: extract_maps(total, True, 0.95, b, lr_max_diff=1.5, right=False),
         ]
         return calls
 
@@ -471,6 +526,37 @@ def main() -> None:
             if err != 0.0:
                 fail(f"K9 differs from its plain version in case {case[0]}: {err}")
 
+    # K9's 2-D form at the array pre-warp: one launch for both passes
+    k9_2d = {"name": "K9 hat_sample_2d", "fn": hat_sample_2d, "max_abs_err": 0.0,
+             "launches": 0, "array_launches": 0,  # on neither earlier path
+             "source": "stereovisionarray_tpu_torch/csrc/hat_sample.cu",
+             "replaces": "stereovisionarray_tpu/ops/hatsample.py:41"}
+    prewarp_shape = (len(c_src), AH, AW)
+
+    def k9_2d_call(seed, outside=False):
+        """hat_sample_2d at the pre-warp's shape on random maps: (b -> output,
+        the two 1-D K9 launches it replaces)."""
+        rng = np.random.default_rng(seed)
+        values = torch.from_numpy(rng.uniform(0.0, 255.0, prewarp_shape).astype(np.float32)).cuda()
+        lo, hi = (-pre_r - 40.0, pre_r + 40.0) if outside else (-pre_r - 1.5, pre_r + 1.5)
+        t_rows, t_cols = (torch.from_numpy(rng.uniform(lo, hi, prewarp_shape).astype(np.float32))
+                          .cuda() for _ in range(2))
+        return (lambda b: hat_sample_2d(values, t_rows, t_cols, -pre_r, pre_r, b),
+                lambda: hat_sample(hat_sample(values, t_rows, -pre_r, pre_r, axis=-2), t_cols,
+                                   -pre_r, pre_r))
+
+    for outside in (False, True):
+        call, two_passes = k9_2d_call(len(k9_cases), outside)
+        got = call("cuda")
+        errs = {"plain": max_err(torch, got, call("torch")),
+                "two_k9_launches": max_err(torch, got, two_passes())}
+        torch.cuda.synchronize()
+        k9_2d["max_abs_err"] = max(k9_2d["max_abs_err"], *errs.values())
+        emit({"phase": "k9_parity", "case": "array_prewarp_2d", "shape": list(prewarp_shape),
+              "taps": [-pre_r, pre_r], "t_outside_range": outside, "max_abs_err": errs, **tag})
+        if any(e != 0.0 for e in errs.values()):
+            fail(f"K9's 2-D form differs: {errs}")
+
     # ---- 3d. float kernel parity ------------------------------------------------
     src_csrc = "stereovisionarray_tpu_torch/csrc/"
     float_kernels = [
@@ -536,6 +622,11 @@ def main() -> None:
                 call = lambda b: extract_disparity_maps(v, True, uq, lr, b)  # noqa: E731
                 parity(k6, call("cuda"), call("torch"), shape=shape, volume=name, uniqueness=uq,
                        lr_max_diff=lr)
+            for right in (False, True):  # K4's launch with the LR check fused
+                call = lambda b: extract_maps(v, True, 0.95, b, lr_max_diff=1.5,  # noqa: E731
+                                              right=right)
+                parity(k5f, call("cuda"), call("torch"), shape=shape, volume=name,
+                       uniqueness=0.95, lr_max_diff=1.5, right_map=right)
 
     # ---- 4. main path --------------------------------------------------------
     bench_cfg = (CostConfig(num_disparities=64, census_window=(7, 9), dtype="int8"),
@@ -544,16 +635,42 @@ def main() -> None:
                  SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True))
     bench_pair = stereo_pair(torch, BENCH_SHAPE[0], BENCH_SHAPE[1], seed=0)
     entry_pair = stereo_pair(torch, ENTRY_SHAPE[0], ENTRY_SHAPE[1], seed=0, offset=16)
-    for k in kernels:
-        k["fn"].launches = 0
-    outs = [two_view_disparity(*bench_pair, *bench_cfg),
-            two_view_disparity(*entry_pair, *entry_cfg)]
-    torch.cuda.synchronize()
-    for k in kernels:
-        k["launches"] = k["fn"].launches
-    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    all_kernels = kernels + [k8, k9, k9_2d] + float_kernels
+    real_launch = _native.launch
+
+    def counted(run):
+        """run() with every launch count set to 0 just before: (output, the
+        wrappers' counts, the C entry points it launched)."""
+        entries = collections.Counter()
+
+        def spy(name, *args):
+            entries[name] += 1
+            return real_launch(name, *args)
+
+        for k in all_kernels:
+            zero(k)
+        _native.launch = spy
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            _native.launch = real_launch
+        return out, {k["name"]: count(k) for k in all_kernels}, dict(entries)
+
+    def check_integer_entries(entries, frames, what):
+        """The integer two-view path: one extraction launch a frame (the LR
+        check inside it), no standalone K5."""
+        if entries.get("svt_lr_gather", 0) or entries.get("svt_extract_maps", 0) != frames:
+            fail(f"{what} launched {entries}: want {frames} svt_extract_maps, no svt_lr_gather")
+
+    outs, tv_counts, tv_entries = counted(lambda: [two_view_disparity(*bench_pair, *bench_cfg),
+                                                   two_view_disparity(*entry_pair, *entry_cfg)])
+    for k in all_kernels:
+        k["launches"] = tv_counts[k["name"]]
+    missing = [n for n in integer_path if tv_counts[n] == 0]
     if missing:
         fail(f"the main path never launched {missing}")
+    check_integer_entries(tv_entries, 2, "the main path")
     for name, out, pair, cfg in (("bench", outs[0], bench_pair, bench_cfg),
                                  ("entry", outs[1], entry_pair, entry_cfg)):
         plain = two_view_disparity(*pair, *cfg, backend="torch")
@@ -563,6 +680,8 @@ def main() -> None:
         finite = bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
         emit({"phase": "main_path", "run": name, "shape": [h, w, cfg[0].num_disparities],
               "dtype": cfg[0].dtype, "valid_fraction": out.valid.float().mean().item(),
+              "launches_both_runs": {n: c for n, c in tv_counts.items() if c},
+              "entry_launches_both_runs": tv_entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"main path ({name}) differs from the plain path or is not finite")
@@ -572,16 +691,12 @@ def main() -> None:
     # ---- 4b. array main path -------------------------------------------------
     array_cfgs = {"cross": array_config(AD, **{"plane_sweep.topology": "CROSS"}),
                   "to_center": array_config(AD)}
-    array_kernels = kernels + [k8]
-    for k in array_kernels:
-        k["fn"].launches = 0
-    array_outs = {name: array_depth_pipeline(images, cams, cfg) for name, cfg in array_cfgs.items()}
-    torch.cuda.synchronize()
-    for k in array_kernels:
-        k["array_launches"] = k["fn"].launches
-    missing = [k["name"] for k in array_kernels
-               if k["name"] in ("K8 plane_sweep", "K2/K3 sgm_paths", "K4 extract_maps")
-               and k["array_launches"] == 0]
+    array_outs, arr_counts, arr_entries = counted(
+        lambda: {name: array_depth_pipeline(images, cams, cfg) for name, cfg in array_cfgs.items()})
+    for k in all_kernels:
+        k["array_launches"] = arr_counts[k["name"]]
+    array_kernels = [k8["name"], "K2/K3 sgm_paths", "K4 extract_maps"]
+    missing = [n for n in array_kernels if arr_counts[n] == 0]
     if missing:
         fail(f"the array path never launched {missing}")
     for name, cfg in array_cfgs.items():
@@ -595,7 +710,8 @@ def main() -> None:
         emit({"phase": "array_main_path", "run": name, "shape": [rows * cols, AH, AW, AD],
               "sources": len(reference_and_sources(cfg, rows * cols)[1]),
               "valid_fraction": out.valid.float().mean().item(),
-              "launches": {k["name"]: k["array_launches"] for k in array_kernels},
+              "launches_both_runs": {n: c for n, c in arr_counts.items() if c},
+              "entry_launches_both_runs": arr_entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"array path ({name}) differs from the plain path or is not finite")
@@ -603,50 +719,45 @@ def main() -> None:
             fail(f"array path ({name}) depth shape {tuple(out.refined_depth.shape)}")
 
     # ---- 4c. cascade main paths -----------------------------------------------
-    all_kernels = kernels + [k8, k9] + float_kernels
-
-    def counted(run):
-        """run() with every launch count set to 0 just before: (output, counts)."""
-        for k in all_kernels:
-            k["fn"].launches = 0
-        out = run()
-        torch.cuda.synchronize()
-        return out, {k["name"]: k["fn"].launches for k in all_kernels}
-
     tv_left, tv_right, tv_gt, tv_mask = two_view_cascade_scene(torch, images.device)
-    tv_out, tv_launches = counted(lambda: two_view_cascade_run(tv_left, tv_right))
-    arr_out, arr_launches = counted(lambda: array_depth_pipeline(images, cams, casc_cfg))
+    tv_run = counted(lambda: two_view_cascade_run(tv_left, tv_right))
+    arr_run = counted(lambda: array_depth_pipeline(images, cams, casc_cfg))
+    tv_out, arr_out = tv_run[0], arr_run[0]
     for k in all_kernels:
-        k["cascade_launches"] = tv_launches[k["name"]] + arr_launches[k["name"]]
-    two_view_kernels = [k["name"] for k in kernels]
-    array_kernels = [k8["name"], "K2/K3 sgm_paths", "K4 extract_maps"]
-    tv_needed = {"smooth": two_view_kernels + [k9["name"]], "band": two_view_kernels}
-    arr_needed = {"smooth": array_kernels + [k9["name"]], "band": array_kernels}
+        k["cascade_launches"] = tv_run[1][k["name"]] + arr_run[1][k["name"]]
+    tv_needed = {"smooth": integer_path + [k9["name"]], "band": integer_path}
+    # the pre-warp: one 2-D K9 launch, no 1-D one
+    arr_needed = {"smooth": array_kernels + [k9_2d["name"]], "band": array_kernels}
     tv_fields = ("disparity", "valid", "cost", "confidence", "coarse_disparity", "band_offset")
     sweep_fields = ("depth", "plane", "cost", "valid", "num_views", "confidence")
     for mode in ("smooth", "band"):
-        out, launches = ((tv_out, tv_launches) if mode == "smooth" else
-                         counted(lambda: two_view_cascade_run(tv_left, tv_right, mode)))
+        out, launches, entries = (tv_run if mode == "smooth" else
+                                  counted(lambda: two_view_cascade_run(tv_left, tv_right, mode)))
         missing = [n for n in tv_needed[mode] if launches[n] == 0]
         if missing:
             fail(f"the two-view cascade ({mode}) never launched {missing}")
+        check_integer_entries(entries, 2, f"the two-view cascade ({mode}), coarse and fine,")
         plain = two_view_cascade_run(tv_left, tv_right, mode, backend="torch")
         errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in tv_fields}
         finite = bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
         emit({"phase": "cascade_main_path", "run": f"two_view_{mode}", "shape": list(CASCADE_SHAPE),
               "dtype": tv_cost.dtype, **tv_kw, "valid_fraction": out.valid.float().mean().item(),
-              "launches": launches,
+              "launches": launches, "entry_launches": entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"two-view cascade ({mode}) differs from the plain path or is not finite")
         if tuple(out.disparity.shape) != (CH, CW):
             fail(f"two-view cascade ({mode}) disparity shape {tuple(out.disparity.shape)}")
         cfg = casc_cfg.override(**{"plane_sweep.cascade_mode": mode})
-        out, launches = ((arr_out, arr_launches) if mode == "smooth" else
-                         counted(lambda: array_depth_pipeline(images, cams, cfg)))
+        out, launches, entries = (arr_run if mode == "smooth" else
+                                  counted(lambda: array_depth_pipeline(images, cams, cfg)))
         missing = [n for n in arr_needed[mode] if launches[n] == 0]
         if missing:
             fail(f"the array cascade ({mode}) never launched {missing}")
+        if entries.get("svt_hat_sample", 0) or entries.get("svt_hat_sample_2d", 0) != (
+                mode == "smooth"):
+            fail(f"the array cascade ({mode}) pre-warp launched {entries}: want one "
+                 "svt_hat_sample_2d in smooth mode, none in band mode, no svt_hat_sample")
         plain = array_depth_pipeline(images, cams, cfg, backend="torch")
         fields = ("depth", "refined_depth", "disparity", "refined_disparity", "valid")
         errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in fields}
@@ -657,7 +768,7 @@ def main() -> None:
               "shape": [rows * cols, AH, AW, AD], "sources": len(c_src),
               **{k.split(".")[1]: v for k, v in ARRAY_CASCADE.items() if "cascade_" in k},
               "valid_fraction": out.valid.float().mean().item(),
-              "launches": launches,
+              "launches": launches, "entry_launches": entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"array cascade ({mode}) differs from the plain path or is not finite")
@@ -676,13 +787,15 @@ def main() -> None:
                             float_sgm, bench_pair),
                   "entry": (CostConfig(num_disparities=64, census_window=(7, 9), dtype="float32"),
                             float_sgm, entry_pair)}
-    tv_float_needed = ["K1 cost_volume", k7["name"], k6["name"]]
+    tv_float_needed = ["K1 cost_volume", k7["name"], k6["name"], k5f["name"]]
     for name, (cc, sc, pair) in float_cfgs.items():
-        out, launches = counted(lambda: two_view_disparity(*pair, cc, sc))
+        out, launches, entries = counted(lambda: two_view_disparity(*pair, cc, sc))
         add_float_launches(launches)
         missing = [n for n in tv_float_needed if launches[n] == 0]
         if missing:
             fail(f"the float two-view path ({name}) never launched {missing}")
+        if entries.get("svt_extract_maps", 0) != launches[k6["name"]] or "svt_lr_gather" in entries:
+            fail(f"K6 with LR is not one launch on the float two-view path: {entries}")
         plain = two_view_disparity(*pair, cc, sc, backend="torch")
         errs = {f: max_err(torch, getattr(out, f), getattr(plain, f))
                 for f in ("disparity", "valid", "cost", "confidence")}
@@ -691,7 +804,7 @@ def main() -> None:
         emit({"phase": "float_main_path", "run": f"two_view_{name}",
               "shape": [h, w, cc.num_disparities], "dtype": "float32",
               "valid_fraction": out.valid.float().mean().item(),
-              "launches": {n: c for n, c in launches.items() if c},
+              "launches": {n: c for n, c in launches.items() if c}, "entry_launches": entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"float two-view ({name}) differs from the plain path or is not finite")
@@ -710,7 +823,7 @@ def main() -> None:
             [k8["name"], k6["name"]], sweep_fields),
     }
     for name, (run, needed, fields) in float_runs.items():
-        out, launches = counted(lambda: run("auto"))
+        out, launches, entries = counted(lambda: run("auto"))
         add_float_launches(launches)
         missing = [n for n in needed if launches[n] == 0]
         if missing:
@@ -723,21 +836,24 @@ def main() -> None:
         finite = bool(torch.isfinite(out.depth).all())
         emit({"phase": "float_main_path", "run": name, "shape": [rows * cols, AH, AW, AD],
               "sources": len(ps_src), "valid_fraction": out.valid.float().mean().item(),
-              "launches": {n: c for n, c in launches.items() if c},
+              "launches": {n: c for n, c in launches.items() if c}, "entry_launches": entries,
               "max_abs_err_vs_plain": errs, "finite": finite, **tag})
         if any(e != 0.0 for e in errs.values()) or not finite:
             fail(f"{name} differs from the plain path or is not finite")
 
-    # the K10-K12 entry points, which no pipeline calls, at the bench shape
+    # the K10-K12 entry points and the standalone K5, which no pipeline calls,
+    # at the bench shape
     fl, fr, fvol, fp2_y, fp2_x = float_inputs(*BENCH_SHAPE, seed=0)
+    fmaps = extract_maps(sgm_aggregate_float(fvol, fp2_y, fp2_x, 8.0), True, 0.95)
     api_runs = {
         k10["name"]: lambda b: sgm_aggregate_hwd(fvol, 8.0, 96.0, 8, fl, True, 24.0, b),
         k11["name"]: lambda b: sweep_pair(fvol, fp2_y, 8.0, True, b),
         k12["name"]: lambda b: sgm_extract_fused(fvol, fp2_y, fp2_x, 8.0, 8, True, 0.95, 1.5, b),
+        k5["name"]: lambda b: lr_gather(fmaps.disparity, fmaps.disparity_right, BENCH_SHAPE[2], b),
     }
-    api_kernels = {k["name"]: k for k in (k10, k11, k12)}
+    api_kernels = {k["name"]: k for k in (k10, k11, k12, k5)}
     for name, run in api_runs.items():
-        out, launches = counted(lambda: run("auto"))
+        out, launches, entries = counted(lambda: run("auto"))
         add_float_launches(launches)
         if launches[name] == 0:
             fail(f"{name} never launched its kernels")
@@ -750,7 +866,7 @@ def main() -> None:
         k = api_kernels[name]
         k["max_abs_err"] = max(k["max_abs_err"], err)
         emit({"phase": "float_main_path", "run": name, "shape": list(BENCH_SHAPE),
-              "launches": {n: c for n, c in launches.items() if c},
+              "launches": {n: c for n, c in launches.items() if c}, "entry_launches": entries,
               "max_abs_err_vs_plain": err, **tag})
         if err != 0.0:
             fail(f"{name} differs from its plain version at the bench shape: {err}")
@@ -842,12 +958,13 @@ def main() -> None:
         calls = stage_inputs(h, w, D, dtype, 8, seed=1)
         for k, call in zip(kernels, calls):
             k_ms = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+            dev_ms = device_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
             p_ms = cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1)
             emit({"phase": "timing", "kernel": k["name"], "shape": [h, w, D], "dtype": dtype,
-                  "iters": TIMED_FRAMES, "ms": k_ms, "plain_iters": PLAIN_FRAMES,
-                  "plain_ms": p_ms, **tag})
+                  "iters": TIMED_FRAMES, "ms": k_ms, "device_ms": dev_ms,
+                  "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
             if dtype == "int8":  # the bench shape and dtype
-                k["ms"], k["plain_ms"] = k_ms, p_ms
+                k["ms"], k["device_ms"], k["plain_ms"] = k_ms, dev_ms, p_ms
 
     # ---- 6b. array timing -----------------------------------------------------
     for name, cfg in array_cfgs.items():
@@ -861,13 +978,16 @@ def main() -> None:
         args, fusion = sweep_args(cams, images, cfg)
         k_ms = cuda_ms(torch, lambda: plane_sweep_census(*args, **fusion, backend="cuda"),
                        TIMED_FRAMES)
+        dev_ms = device_ms(torch, lambda: plane_sweep_census(*args, **fusion, backend="cuda"),
+                           TIMED_FRAMES)
         p_ms = cuda_ms(torch, lambda: plane_sweep_census(*args, **fusion, backend="torch"),
                        PLAIN_FRAMES, warmup=1)
         emit({"phase": "timing", "kernel": k8["name"], "run": name, "shape": [AH, AW, AD],
               "sources": args[1].shape[0], "iters": TIMED_FRAMES, "ms": k_ms,
-              "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
-        k8[f"ms_{name}"], k8[f"plain_ms_{name}"] = k_ms, p_ms
-    k8["ms"], k8["plain_ms"] = k8["ms_cross"], k8["plain_ms_cross"]
+              "device_ms": dev_ms, "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
+        k8[f"ms_{name}"], k8[f"device_ms_{name}"], k8[f"plain_ms_{name}"] = k_ms, dev_ms, p_ms
+    k8["ms"], k8["device_ms"], k8["plain_ms"] = (k8["ms_cross"], k8["device_ms_cross"],
+                                                 k8["plain_ms_cross"])
     # K2/K3 and K4 on the CROSS plane volume, quantized as _volume_to_maps does
     args, fusion = sweep_args(cams, images, array_cfgs["cross"])
     vol, _ = plane_sweep_census(*args, **fusion)
@@ -883,6 +1003,7 @@ def main() -> None:
         p_ms = cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1)
         emit({"phase": "timing", "kernel": k["name"], "run": "array_cross",
               "shape": [AH, AW, AD], "dtype": "int8", "iters": TIMED_FRAMES, "ms": k_ms,
+              "device_ms": device_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
               "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
 
     # ---- 6c. cascade timing ----------------------------------------------------
@@ -906,12 +1027,24 @@ def main() -> None:
     for i, case in enumerate(k9_cases):
         call = k9_call(case, i)
         k_ms = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        dev_ms = device_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
         p_ms = cuda_ms(torch, lambda: call("torch"), TIMED_FRAMES)
         emit({"phase": "timing", "kernel": k9["name"], "case": case[0], "shape": list(case[1]),
               "taps": [case[2], case[3]], "iters": TIMED_FRAMES, "ms": k_ms,
-              "plain_iters": TIMED_FRAMES, "plain_ms": p_ms, **tag})
+              "device_ms": dev_ms, "plain_iters": TIMED_FRAMES, "plain_ms": p_ms, **tag})
         if case[0] == "two_view_warp":
-            k9["ms"], k9["plain_ms"] = k_ms, p_ms
+            k9["ms"], k9["device_ms"], k9["plain_ms"] = k_ms, dev_ms, p_ms
+    # the array pre-warp: K9's 2-D form beside the two 1-D launches it replaces
+    call, two_passes = k9_2d_call(len(k9_cases))
+    k9_2d["ms"] = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+    k9_2d["device_ms"] = device_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+    k9_2d["plain_ms"] = cuda_ms(torch, lambda: call("torch"), TIMED_FRAMES)
+    emit({"phase": "timing", "kernel": k9_2d["name"], "case": "array_prewarp_2d",
+          "shape": list(prewarp_shape), "taps": [-pre_r, pre_r], "iters": TIMED_FRAMES,
+          "ms": k9_2d["ms"], "device_ms": k9_2d["device_ms"], "plain_iters": TIMED_FRAMES,
+          "plain_ms": k9_2d["plain_ms"],
+          "two_k9_launches_ms": cuda_ms(torch, two_passes, TIMED_FRAMES),
+          "two_k9_launches_device_ms": device_ms(torch, two_passes, TIMED_FRAMES), **tag})
 
     # ---- 6d. float timing -------------------------------------------------------
     h, w, D = BENCH_SHAPE
@@ -943,15 +1076,17 @@ def main() -> None:
     for k in float_kernels:
         call = float_calls[k["name"]]
         k["ms"] = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        k["device_ms"] = device_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
         k["plain_ms"] = cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1)
         emit({"phase": "timing", "kernel": k["name"], "shape": [h, w, D], "dtype": "float32",
-              "iters": TIMED_FRAMES, "ms": k["ms"], "plain_iters": PLAIN_FRAMES,
-              "plain_ms": k["plain_ms"], **tag})
+              "iters": TIMED_FRAMES, "ms": k["ms"], "device_ms": k["device_ms"],
+              "plain_iters": PLAIN_FRAMES, "plain_ms": k["plain_ms"], **tag})
     # K6 without the LR check (raw WTA, the wdh route): the right view is skipped
     call = lambda b: extract_disparity_maps(ftotal, True, 0.0, 0.0, b)  # noqa: E731
     emit({"phase": "timing", "kernel": k6["name"], "variant": "no_lr", "shape": [h, w, D],
           "dtype": "float32", "iters": TIMED_FRAMES, "ms": cuda_ms(torch, lambda: call("cuda"),
                                                                     TIMED_FRAMES),
+          "device_ms": device_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
           "plain_iters": PLAIN_FRAMES,
           "plain_ms": cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1), **tag})
 
@@ -959,13 +1094,18 @@ def main() -> None:
     rng = np.random.default_rng(2)
     disp_r = torch.from_numpy(rng.uniform(0, D - 1, (h, w)).astype(np.float32)).cuda()
     src_col = torch.from_numpy(rng.integers(0, w, (h, w))).cuda()
-    kernels[3]["library"] = ("torch.gather", cuda_ms(
-        torch, lambda: torch.gather(disp_r, 1, src_col), TIMED_FRAMES))
     values = torch.from_numpy(rng.uniform(0, 255, (1, 1, CH, CW)).astype(np.float32)).cuda()
     grid = torch.from_numpy(rng.uniform(-1, 1, (1, CH, CW, 2)).astype(np.float32)).cuda()
-    k9["library"] = ("torch.nn.functional.grid_sample", cuda_ms(
-        torch, lambda: torch.nn.functional.grid_sample(values, grid, "bilinear", "border",
-                                                       align_corners=True), TIMED_FRAMES))
+    # (grid_sample, one channel on a random grid, computes no aux output: the
+    # timed K9 case does)
+    for k, name, fn in (
+            (k5, "torch.gather", lambda: torch.gather(disp_r, 1, src_col)),
+            (k9, "torch.nn.functional.grid_sample",
+             lambda: torch.nn.functional.grid_sample(values, grid, "bilinear", "border",
+                                                     align_corners=True))):
+        k["library"] = (name, cuda_ms(torch, fn, TIMED_FRAMES), device_ms(torch, fn, TIMED_FRAMES))
+        emit({"phase": "timing", "library": name, "for": k["name"], "iters": TIMED_FRAMES,
+              "ms": k["library"][1], "device_ms": k["library"][2], **tag})
 
     # bound: the larger of the bytes the function must move (each input read
     # once, each output written once) over HBM bandwidth and its scalar
@@ -982,9 +1122,14 @@ def main() -> None:
         "K2/K3 sgm_paths": (HWD + 2 * HW * 2 + HWD * 2, 8 * HWD * 8),
         "K4 extract_maps": (HWD * 2 + HW * 17, HWD * 6),
         "K5 lr_gather": (HW * 12, HW * 4),
+        # the fused launch: K4's bytes without the right map, K4's operations
+        # and the LR test's 4 a pixel
+        "K5 lr_check fused": (HWD * 2 + HW * 13, HWD * 6 + HW * 4),
         "K8 plane_sweep": (5 * AH * AW * 4 + 4 * AD * 8 + AH * AW * AD * 8,
                            4 * AH * AW * AD * 60),
         "K9 hat_sample": (CH * CW * 16 + CW * 4, CH * CW * 12),
+        # values, t_rows, t_cols read, out written; 12 operations a pass
+        "K9 hat_sample_2d": (int(np.prod(prewarp_shape)) * 16, int(np.prod(prewarp_shape)) * 24),
         k6["name"]: (HWD * 4 + HW * 13, HWD * 6 + HW * 4),
         k7["name"]: (HWD * 8 + 2 * HW * 4, 8 * HWD * 8 + 7 * HWD),
         k10["name"]: (HWD * 8 + HW * 4, 8 * HWD * 8 + 7 * HWD),
@@ -1005,9 +1150,11 @@ def main() -> None:
                                             "array": k["array_launches"],
                                             "cascade": k["cascade_launches"],
                                             "float": k["float_launches"]},
-                       "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                       "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                       "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                        "library_ms": k["library"][1] if "library" in k else None,
+                       "library_device_ms": k["library"][2] if "library" in k else None,
                        "library_call": k["library"][0] if "library" in k else None}
                       for k in all_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

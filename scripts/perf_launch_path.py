@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Where a small kernel's wrapper call spends its time on an NVIDIA GPU.
+
+    python3 scripts/perf_launch_path.py [--calls 1000] [--e2e]
+        [--package-root DIR --tag NAME]
+
+For the hat sampler K9 (the two-view cascade's residual warp, 540x768 with
+its aux table) and the standalone LR gather K5 (540x768, D=64), times each
+step of one wrapper call with ``time.perf_counter_ns`` over ``--calls``
+calls, without synchronising:
+
+ - ``resolve_backend``;
+ - the argument checks;
+ - the output allocations (``torch.empty``);
+ - the device context and stream lookup;
+ - the lookup of the C entry point;
+ - the ctypes call itself (which enqueues the kernel), and the same call
+   refused by the entry point's own argument check before any launch (a
+   batch of 0), which is ctypes' share of it;
+ - the whole wrapper call.
+
+Each step is timed in the form the launch path of the port's first four
+slices took (``pr4_*``: a ``torch.cuda.device`` context, a
+``torch.cuda.current_stream`` object, ``getattr`` on the library, shape
+tuples rebuilt for every check, ``torch.empty`` with a dtype and a device)
+and, where the checkout has them, in the forms of the lean launch path in
+``_native.py`` (``lean_*``). ``wrapper`` is the checkout's own wrapper: run
+the script from an unpacked older checkout to time that one's. ``loop`` is
+the cost of the timing loop and the closure call alone.
+
+Then each kernel's device time: ``--device-iters`` launches queued behind a
+``torch.cuda._sleep`` spin, so that the two CUDA events bracket the device's
+work and none of the host's (the spin is lengthened until the host has
+enqueued every launch before it ends). The same for the PyTorch call that
+computes the same function (``torch.gather``, ``grid_sample``).
+
+With ``--e2e``, also the end-to-end times of the paths that run these
+wrappers, CUDA events over warm frames as ``chip_smoke.py`` times them:
+two-view at 540x768x64 (int8, int16, float32 with uniqueness and LR), the
+two-view cascade (540x768, 256 disparities) and the array cascade (5x5 of
+270x360, 128 planes, CROSS).
+
+``--package-root DIR`` imports the package from another checkout (an
+unpacked older commit), so that two versions compare within one call, in
+turns. Prints one JSON line per measurement and writes them all to
+``chiprun_out/perf_launch_path[_TAG].json``. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+from chip_smoke import cuda_ms, device_ms  # noqa: E402
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
+def host_ns(fn, calls: int) -> float:
+    """Mean host nanoseconds of one fn() over `calls` calls, unsynchronised."""
+    for _ in range(10):
+        fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter_ns() - t0) / calls
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--calls", type=int, default=1000)
+    ap.add_argument("--device-iters", type=int, default=200)
+    ap.add_argument("--e2e", action="store_true", help="also time the paths end to end")
+    ap.add_argument("--package-root", type=Path, default=REPO,
+                    help="checkout whose stereovisionarray_tpu_torch to time")
+    ap.add_argument("--tag", default="", help="suffix of the output file and label of each line")
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.package_root.resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("perf_launch_path: needs a CUDA device")
+    from stereovisionarray_tpu_torch import _native
+    from stereovisionarray_tpu_torch.backend import resolve_backend
+    from stereovisionarray_tpu_torch.models.cascade import SMOOTH_R
+    from stereovisionarray_tpu_torch.ops import hatsample
+    from stereovisionarray_tpu_torch.ops.extract_cuda import lr_gather
+
+    card = card_line()
+    lines = []
+
+    def emit(obj):
+        obj = {**obj, "tag": args.tag, "card": card}
+        lines.append(obj)
+        print(json.dumps(obj), flush=True)
+
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+          "raw_stream_getter": hasattr(torch._C, "_cuda_getCurrentRawStream"),
+          "device_getter": hasattr(torch._C, "_cuda_getDevice")})
+    lib = _native.library()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    H, W, D, R = 540, 768, 64, SMOOTH_R
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    values = cuda(rng.uniform(0, 255, (H, W)).astype(np.float32))
+    t = cuda(rng.uniform(-R - 1.5, R + 1.5, (H, W)).astype(np.float32))
+    aux = cuda(rng.uniform(0, 200, W).astype(np.float32))
+    disp_l = cuda(rng.uniform(0, D - 1, (H, W)).astype(np.float32))
+    disp_r = cuda(rng.uniform(0, D - 1, (H, W)).astype(np.float32))
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    aout = torch.empty((H, W), dtype=torch.float32, device=dev)
+
+    def pr4_validate(values, t, k0, k1, aux, axis):
+        """hat_sample's argument checks of the port's first four slices."""
+        if values.dim() not in (2, 3) or t.shape != values.shape:
+            raise ValueError("values and t must share a shape")
+        if axis not in (-1, -2):
+            raise ValueError("bad axis")
+        if k0 > k1:
+            raise ValueError("empty tap range")
+        if aux is not None and (axis != -1 or tuple(aux.shape) != (values.shape[-1],)):
+            raise ValueError("bad aux")
+
+    def pr4_check(x, name, dtype, shape):
+        """The argument check of the port's first four slices."""
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got device {x.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    def pr4_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    stream = pr4_stream()
+    k9_args = (values.data_ptr(), t.data_ptr(), aux.data_ptr(), out.data_ptr(), aout.data_ptr(),
+               1, H, W, -R, R, 0)
+    k5_args = (disp_l.data_ptr(), disp_r.data_ptr(), out.data_ptr(), H, W, D)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cases = {
+        "K9 hat_sample": {
+            "resolve_backend": lambda: resolve_backend(values, "auto"),
+            "pr4_checks": lambda: (pr4_validate(values, t, -R, R, aux, -1),
+                                   pr4_check(values, "values", torch.float32, (H, W)),
+                                   pr4_check(t, "t", torch.float32, (H, W)),
+                                   pr4_check(aux, "aux", torch.float32, (W,))),
+            "pr4_allocations": lambda: (torch.empty((H, W), **f32),
+                                        torch.empty((H, W), **f32)),
+            "pr4_device_and_stream": pr4_stream,
+            "pr4_entry_lookup": lambda: getattr(lib, "svt_hat_sample"),
+            "ctypes_call": lambda: lib.svt_hat_sample(*k9_args, stream),
+            "ctypes_call_refused": lambda: lib.svt_hat_sample(*k9_args[:5], 0, *k9_args[6:],
+                                                              stream),
+            "wrapper": lambda: hatsample.hat_sample(values, t, -R, R, aux=aux),
+        },
+        "K5 lr_gather": {
+            "resolve_backend": lambda: resolve_backend(disp_l, "auto"),
+            "pr4_checks": lambda: (pr4_check(disp_l, "disp_l", torch.float32, (H, W)),
+                                   pr4_check(disp_r, "disp_r", torch.float32, (H, W))),
+            "pr4_allocations": lambda: torch.empty((H, W), **f32),
+            "pr4_device_and_stream": pr4_stream,
+            "pr4_entry_lookup": lambda: getattr(lib, "svt_lr_gather"),
+            "ctypes_call": lambda: lib.svt_lr_gather(*k5_args, stream),
+            "ctypes_call_refused": lambda: lib.svt_lr_gather(*k5_args[:3], 0, *k5_args[4:],
+                                                             stream),
+            "wrapper": lambda: lr_gather(disp_l, disp_r, D),
+        },
+    }
+    if hasattr(_native, "_FNS"):  # the lean launch path
+        _native.library()
+        fns, index = _native._FNS, dev.index
+
+        def lean_stream():
+            if torch._C._cuda_getDevice() == index:
+                return torch._C._cuda_getCurrentRawStream(index)
+            raise SystemExit("perf_launch_path: device 0 is not the current device")
+
+        cases["K9 hat_sample"].update({
+            "lean_checks": lambda: (hatsample._validate(values, t, -R, R, aux, -1),
+                                    _native.check(values, "values", torch.float32, (H, W)),
+                                    _native.check(t, "t", torch.float32, (H, W)),
+                                    _native.check(aux, "aux", torch.float32, (W,))),
+            "lean_allocations": lambda: (torch.empty_like(t), torch.empty_like(t)),
+            "lean_device_and_stream": lean_stream,
+            "lean_entry_lookup": lambda: fns["svt_hat_sample"],
+        })
+        cases["K5 lr_gather"].update({
+            "lean_checks": lambda: (_native.check(disp_l, "disp_l", torch.float32, (H, W)),
+                                    _native.check(disp_r, "disp_r", torch.float32, (H, W))),
+            "lean_allocations": lambda: torch.empty_like(disp_l),
+            "lean_device_and_stream": lean_stream,
+            "lean_entry_lookup": lambda: fns["svt_lr_gather"],
+        })
+    loop_ns = host_ns(lambda: None, args.calls)
+    emit({"step": "loop", "ns": loop_ns, "calls": args.calls})
+    for kernel, steps in cases.items():
+        for step, fn in steps.items():
+            ns = host_ns(fn, args.calls)
+            torch.cuda.synchronize()
+            emit({"kernel": kernel, "step": step, "ns": ns, "calls": args.calls})
+        emit({"kernel": kernel, "step": "device",
+              "ms": device_ms(torch, steps["ctypes_call"], args.device_iters),
+              "iters": args.device_iters})
+
+    src_col = cuda(rng.integers(0, W, (H, W)))
+    grid_values = values[None, None]
+    grid = cuda(rng.uniform(-1, 1, (1, H, W, 2)).astype(np.float32))
+    library = {
+        "torch.gather": lambda: torch.gather(disp_r, 1, src_col),
+        "grid_sample": lambda: torch.nn.functional.grid_sample(
+            grid_values, grid, "bilinear", "border", align_corners=True),
+    }
+    for name, fn in library.items():
+        ns = host_ns(fn, args.calls)
+        torch.cuda.synchronize()
+        emit({"library": name, "host_ns": ns,
+              "device_ms": device_ms(torch, fn, args.device_iters), "iters": args.device_iters})
+
+    if args.e2e:
+        e2e(torch, emit)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    name = f"perf_launch_path_{args.tag}.json" if args.tag else "perf_launch_path.json"
+    (out_dir / name).write_text(json.dumps(lines, indent=1))
+
+
+def e2e(torch, emit) -> None:
+    """ms per frame (or frame-set) of the paths that run K5's and K9's
+    wrappers, at chip_smoke.py's configurations."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline, two_view_disparity
+
+    h, w, D = chip_smoke.BENCH_SHAPE
+    pair = chip_smoke.stereo_pair(torch, h, w, seed=0)
+    sgm = config.SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True)
+    float_sgm = config.SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True,
+                                 uniqueness=0.95, lr_max_diff=1.5)
+    tv_left, tv_right, _, _ = chip_smoke.two_view_cascade_scene(torch, pair[0].device)
+    cams, images, _, casc_cfg = chip_smoke.array_cascade_scene(torch, pair[0].device)
+    runs = {"two_view_int8": (lambda: two_view_disparity(*pair, config.CostConfig(
+                num_disparities=D, census_window=(7, 9), dtype="int8"), sgm), [h, w, D]),
+            "two_view_int16": (lambda: two_view_disparity(*pair, config.CostConfig(
+                num_disparities=D, census_window=(7, 9), dtype="int16"), sgm), [h, w, D]),
+            "two_view_float32": (lambda: two_view_disparity(*pair, config.CostConfig(
+                num_disparities=D, census_window=(7, 9), dtype="float32"), float_sgm),
+                [h, w, D]),
+            "two_view_cascade": (lambda: chip_smoke.two_view_cascade_run(tv_left, tv_right),
+                                 list(chip_smoke.CASCADE_SHAPE)),
+            "array_cascade": (lambda: array_depth_pipeline(images, cams, casc_cfg),
+                              list(chip_smoke.ARRAY_SHAPE))}
+    for name, (run, shape) in runs.items():
+        frames = chip_smoke.ARRAY_FRAMES if name == "array_cascade" else chip_smoke.TIMED_FRAMES
+        emit({"e2e": name, "shape": shape, "frames": frames,
+              "ms": cuda_ms(torch, run, frames)})
+
+
+if __name__ == "__main__":
+    main()

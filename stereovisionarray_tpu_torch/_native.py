@@ -8,6 +8,14 @@ library. The library is loaded with
 point returns ``cudaGetLastError()``, which :func:`launch` turns into an
 exception. Nothing here runs at import time; the CPU tests import every module
 of the package on a machine with neither nvcc nor a card.
+
+The launch path is lean because the port's small kernels (the hat sampler,
+the LR gather: a few microseconds of device time) spend most of a wrapper
+call on the host. Each entry point's ctypes function is resolved once, at
+load; :func:`launch` takes the raw handle of the device's current stream and
+enters a ``torch.cuda.device`` context only when the tensor's device is not
+the current one; :func:`check` tests the accepted case in one expression and
+builds its message only on a refusal.
 """
 
 from __future__ import annotations
@@ -47,20 +55,21 @@ _SIGNATURES = {
     "svt_sgm_paths_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # partial, out, h, w, n_disp, path_mask, num_paths, sweep_mask, order, stream
     "svt_sgm_combine_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # total, total_bytes, h, w, n_disp, subpixel, uniqueness,
+    # total, total_bytes, h, w, n_disp, subpixel, uniqueness, lr_max_diff,
     # disp_l, cost, valid, second, disp_r, stream
-    "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P),
     # disp_l, disp_r, at, h, w, n_disp, stream
     "svt_lr_gather": (_P, _P, _P, _I, _I, _I, _P),
-    # disp_l, disp_r, valid, lr_max_diff, h, w, n_disp, stream
-    "svt_lr_check": (_P, _P, _P, _F, _I, _I, _I, _P),
     # ref, src, shifts, fused, nviews, n_src, h, w, n_planes, patch, mode, topk, stream
     "svt_plane_sweep": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # values, t, aux, out, aux_out, batch, h, w, k0, k1, along_rows, stream
     "svt_hat_sample": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # values, t_rows, t_cols, out, batch, h, w, k0, k1, stream
+    "svt_hat_sample_2d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
+_FNS: dict = {}  # entry point -> its ctypes function, filled at load
 
 
 def sources() -> list[Path]:
@@ -128,6 +137,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _FNS[name] = fn
         lib.svt_error_string.argtypes = (_I,)
         lib.svt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -144,23 +154,30 @@ def timed_build() -> float:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point `name` on `device`'s current stream; raise on any
-    CUDA error the launch reports."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    CUDA error the launch reports. `device` is a CUDA tensor's device (its
+    index is set)."""
+    if not _FNS:
+        library()
+    index = device.index
+    if torch._C._cuda_getDevice() == index:
+        err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
+    else:  # a kernel runs on the current device: switch to the tensor's
+        with torch.cuda.device(index):
+            err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        msg = lib.svt_error_string(err).decode()
+        msg = _lib.svt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
-    """Validate a tensor handed to a kernel: CUDA, dtype, shape, contiguous."""
+    """Validate a tensor handed to a kernel: CUDA, dtype, shape (a tuple),
+    contiguous."""
+    if t.is_cuda and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")

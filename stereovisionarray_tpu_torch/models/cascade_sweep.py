@@ -13,9 +13,9 @@
    residual shifts ``c_v * j`` for ``j < fine_planes`` with the same kernels
    (K8, then K2/K3 and K4). ``mode="smooth"`` warps by the box-smoothed
    continuous field with two hat-sampling passes (K9: along rows, then along
-   columns, every source in one launch each); ``mode="band"`` quantises the
-   field to bands of ``band_step`` planes and warps each band by a uniform
-   shift.
+   columns, every source in one launch of ``hat_sample_2d``); ``mode="band"``
+   quantises the field to bands of ``band_step`` planes and warps each band
+   by a uniform shift.
 4. Decode: ``k = k_fine + K``; depth from the full plane range, and the view
    count recomputed in the original frame from the full shift.
 
@@ -43,7 +43,7 @@ from stereovisionarray_tpu_torch.models.plane_sweep import (
     plane_sweep_volume,
     shifts_at_inverse_depths,
 )
-from stereovisionarray_tpu_torch.ops.hatsample import hat_sample
+from stereovisionarray_tpu_torch.ops.hatsample import hat_sample_2d
 from stereovisionarray_tpu_torch.ops.postfilter import fill_holes, median3x3, shifted, speckle_filter
 from stereovisionarray_tpu_torch.ops.refine import box_filter2d
 from stereovisionarray_tpu_torch.ops.sweep_cuda import reciprocal_f32
@@ -210,9 +210,9 @@ def _coarse_band_prewarp(images, cameras, ref_index, src_indices, cfg: PlaneSwee
         c_t = torch.from_numpy(c).to(dev)[..., None, None]
         su = a_t[:, 0] + c_t[:, 0] * Kv
         sv = a_t[:, 1] + c_t[:, 1] * Kv
-        # vertical pass along the rows, then horizontal; all sources per launch
-        tmp = hat_sample(src_images, (-sv).clamp(-pad, pad), -pad, pad, axis=-2, backend=backend)
-        warped = hat_sample(tmp, (-su).clamp(-pad, pad), -pad, pad, backend=backend)
+        # vertical pass along the rows, then horizontal: all sources, one launch
+        warped = hat_sample_2d(src_images, (-sv).clamp(-pad, pad), (-su).clamp(-pad, pad), -pad,
+                               pad, backend=backend)
         return warped, K_star, a, c, depths_full
 
     if band_offsets is not None:

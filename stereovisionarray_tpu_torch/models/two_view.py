@@ -3,9 +3,9 @@
 
 Integer costs (int16 at scale 4, int8 at scale 1) run the reference's
 integer fast path: census/BT cost volume (K1) -> 4/8-path SGM (K2/K3) ->
-WTA, subpixel, uniqueness and right-view maps (K4) -> left-right gather (K5)
--> PKRN confidence -> optional post-filters (median, speckle, hole fill;
-``ops/postfilter.py``) -> guarded depth. float32 costs run the reference's
+WTA, subpixel, uniqueness, the right view and the left-right check in one
+launch (K4 with K5 fused) -> PKRN confidence -> optional post-filters
+(median, speckle, hole fill; ``ops/postfilter.py``) -> guarded depth. float32 costs run the reference's
 float Pallas route: float cost volume (K1) -> float SGM summed in the
 reference's order (K7, ``order="k7"``) -> standalone extraction with the
 in-volume LR check (K6) -> the same post-filters. On a CUDA tensor every
@@ -33,12 +33,7 @@ from stereovisionarray_tpu_torch.ops.cost_volume import (
     int8_cost_fits,
     right_from_left_volume,
 )
-from stereovisionarray_tpu_torch.ops.extract_cuda import (
-    BIG_FLOAT,
-    extract_disparity,
-    extract_maps,
-    lr_gather,
-)
+from stereovisionarray_tpu_torch.ops.extract_cuda import extract_disparity, extract_maps
 from stereovisionarray_tpu_torch.ops.postfilter import fill_holes, median3x3, speckle_filter
 from stereovisionarray_tpu_torch.ops.sgm import p2_maps, sgm_aggregate, sum_dtype
 from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_aggregate_paths
@@ -109,11 +104,9 @@ def _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend) -> Dispari
     p2_y, p2_x = p2_maps(left.shape, pen.p2, sum_dtype(pen.dtype), left.device, left,
                          sgm_cfg.adaptive_p2, pen.p2_min)
     total = sgm_aggregate_paths(vol, p2_y, p2_x, pen.p1, sgm_cfg.num_paths, backend)
-    maps = extract_maps(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0), backend)
+    maps = extract_maps(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0), backend,
+                        lr_max_diff=max(sgm_cfg.lr_max_diff, 0.0), right=False)
     valid = maps.valid
-    if sgm_cfg.lr_max_diff > 0:
-        at = lr_gather(maps.disparity, maps.disparity_right, D, backend)
-        valid = valid & ((maps.disparity - at).abs() <= sgm_cfg.lr_max_diff) & (at < BIG_FLOAT)
     if mask is not None:
         valid = valid & mask
     return DisparityResult(

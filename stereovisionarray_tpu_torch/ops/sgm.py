@@ -44,12 +44,13 @@ def _edge_p2(image: torch.Tensor, axis: int, p2: float, p2_min: float,
              dtype: torch.dtype) -> torch.Tensor:
     """Adaptive P2 per pixel: ``max(P2 / (1 + 0.5 |grad|), p2_min)`` with the
     gradient along `axis` (0 at the first row/column), computed in float32 and
-    rounded half to even into an integer `dtype`."""
+    rounded half to even into an integer `dtype`. The two constants stay
+    0-dim CPU tensors: a copy of each to the card would wait for the stream."""
     img = image.to(torch.float32)
     g = torch.diff(img, dim=axis, prepend=img.narrow(axis, 0, 1)).abs()
     p2_map = torch.maximum(
-        torch.tensor(p2, dtype=torch.float32, device=img.device) / (1.0 + 0.5 * g),
-        torch.tensor(p2_min, dtype=torch.float32, device=img.device),
+        torch.tensor(p2, dtype=torch.float32) / (1.0 + 0.5 * g),
+        torch.tensor(p2_min, dtype=torch.float32),
     )
     if not dtype.is_floating_point:
         return torch.round(p2_map).to(dtype)

@@ -285,8 +285,7 @@ def test_two_view_float_route_reaches_k1_k7_k6(monkeypatch):
     want = tv.two_view_disparity(left, right, cc, sc)
     monkeypatch.setattr(tv, "resolve_backend", lambda t, b="auto": "cuda")
     calls = _record(monkeypatch, tv, ("fused_cost_volume_cuda", "sgm_aggregate_paths",
-                                      "sgm_aggregate_float", "extract_disparity", "extract_maps",
-                                      "lr_gather"))
+                                      "sgm_aggregate_float", "extract_disparity", "extract_maps"))
     got = tv.two_view_disparity(left, right, cc, sc)
     assert calls == [("fused_cost_volume_cuda", torch.float32),
                      ("sgm_aggregate_float", torch.float32),
@@ -333,8 +332,7 @@ def test_xla_backend_launches_no_kernel(monkeypatch):
 
     assert resolve_backend(torch.zeros(1), "xla") == "xla"
     calls = _record(monkeypatch, tv, ("fused_cost_volume_cuda", "sgm_aggregate_paths",
-                                      "sgm_aggregate_float", "extract_disparity", "extract_maps",
-                                      "lr_gather"))
+                                      "sgm_aggregate_float", "extract_disparity", "extract_maps"))
     r = np.random.default_rng(6)
     img = torch.from_numpy(r.uniform(0, 255, (8, 24)).astype(np.float32))
     out = tv.two_view_disparity(img, img, CostConfig(num_disparities=4, census_window=(3, 3),
