@@ -68,6 +68,12 @@ The float-cost slice adds, after the cascade phases each:
     1e-6 (EVAL_r03.json printed beside it, ungated);
  6d. float timing: two-view float32 ms/frame beside int8, the ZNCC array ms
     per frame-set, and K6, K7, K10-K12 beside their plain versions.
+The redesign of K2/K3 and K8 adds, within the phases above:
+ 3. K2/K3 on int16 costs whose 8-path total wraps, and at 540x768x256;
+ 3b. K8 with shifts that move by more than a tile within a chunk of planes,
+    and on its generic kernel (patch 9, top-9);
+ 4. the integer scans' wrapper runs no zero-fill and no narrowing copy (the
+    ops it calls, from the profiler), and returns the kernel's int16 total.
 The redesign of K5 and K9 changes, within the phases above:
  3. the extraction with K5's LR check fused into it (K4's launch; the row
     "K5 lr_check fused") against its plain route, with and without the right
@@ -430,6 +436,30 @@ def main() -> None:
         if bad:
             fail(f"kernels differ from their plain versions at {h}x{w}x{D} {dtype}: {bad}")
 
+    # K2/K3's int16 accumulation where the 8-path int32 sum passes 32767 (the
+    # total wraps), and at the flat cascade's 256 disparities (the staged form
+    # with 8 values a lane)
+    k23 = kernels[1]
+    for h, w, D, dtype, lo, hi in ((540, 768, 64, torch.int16, 3000, 9000),
+                                   (540, 768, 256, torch.int8, 0, 71)):
+        rng = np.random.default_rng(D)
+        vol = torch.from_numpy(rng.integers(lo, hi, (h, w, D)).astype(
+            "int16" if dtype == torch.int16 else "int8")).cuda()
+        left, _ = stereo_pair(torch, h, w, seed=D, integer=True)
+        p2_y, p2_x = p2_maps((h, w), 384, torch.int16, left.device, left, True, 96)
+        got = sgm_aggregate_paths(vol, p2_y, p2_x, 32, 8, "cuda")
+        want = sgm_aggregate_paths(vol, p2_y, p2_x, 32, 8, "torch")
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want)
+        k23["max_abs_err"] = max(k23["max_abs_err"], err)
+        emit({"phase": "kernel_parity", "kernel": k23["name"], "shape": [h, w, D],
+              "dtype": str(dtype).split(".")[1], "costs": [lo, hi],
+              "int16_total_wraps": bool(want.min() < 0) if lo else None, "max_abs_err": err,
+              **tag})
+        if err != 0.0:
+            fail(f"K2/K3 differs from its plain version at {h}x{w}x{D} costs {lo}-{hi}: {err}")
+        del vol, got, want
+
     # ---- 3b. K8 parity -------------------------------------------------------
     k8 = {"name": "K8 plane_sweep", "fn": plane_sweep_census, "max_abs_err": 0.0,
           "launches": 0,  # not on the two-view path
@@ -481,6 +511,28 @@ def main() -> None:
         k8["max_abs_err"] = max(k8["max_abs_err"], err)
         emit({"phase": "k8_parity", "case": name, "shape": list(got[0].shape),
               "sources": args[1].shape[0], **fusion, "max_abs_err": err, **tag})
+        if err != 0.0:
+            fail(f"K8 differs from its plain version in case {name}: {err}")
+
+    # the kernel's routes beyond the main path's: shifts that move by more than
+    # a tile from plane to plane (random, +-70 px), patch 9 and top-9 (the
+    # generic kernel: census words and top-k slots in shared memory)
+    args, fusion = sweep_args(cams, images, array_config(AD))
+    rng = np.random.default_rng(3)
+    wide = torch.from_numpy(rng.uniform(-70, 70, tuple(args[2].shape)).astype(np.float32)).cuda()
+    for name, call in (
+            ("wide_shifts", lambda b: plane_sweep_census(args[0], args[1], wide, 5, False, 6, b)),
+            ("generic_patch9", lambda b: plane_sweep_census(args[0], args[1][:4],
+                                                            args[2][:, :4].contiguous(), 9,
+                                                            False, None, b)),
+            ("generic_top9", lambda b: plane_sweep_census(args[0], args[1], args[2], 5, False, 9,
+                                                          b))):
+        got, want = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        err = max(max_err(torch, a, b) for a, b in zip(got, want))
+        k8["max_abs_err"] = max(k8["max_abs_err"], err)
+        emit({"phase": "k8_parity", "case": name, "shape": list(got[0].shape),
+              "max_abs_err": err, **tag})
         if err != 0.0:
             fail(f"K8 differs from its plain version in case {name}: {err}")
 
@@ -687,6 +739,21 @@ def main() -> None:
             fail(f"main path ({name}) differs from the plain path or is not finite")
         if tuple(out.disparity.shape) != (h, w):
             fail(f"main path ({name}) disparity shape {tuple(out.disparity.shape)}")
+
+    # the integer scans' wrapper: the kernel writes the int16 total, so no
+    # zero-fill and no narrowing copy run beside it (the CPU-side ops it calls)
+    calls = stage_inputs(*BENCH_SHAPE, "int8", 8, seed=5)
+    calls[1]("cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        total = calls[1]("cuda")
+    ops = sorted({e.name for e in prof.events()})
+    banned = {"aten::zeros", "aten::zero_", "aten::fill_", "aten::to", "aten::_to_copy",
+              "aten::copy_"} & set(ops)
+    emit({"phase": "main_path", "run": "k2k3_wrapper_ops", "ops": ops,
+          "total_dtype": str(total.dtype), **tag})
+    if banned or total.dtype != torch.int16:
+        fail(f"the integer scans' wrapper ran {sorted(banned)} or returned {total.dtype}")
 
     # ---- 4b. array main path -------------------------------------------------
     array_cfgs = {"cross": array_config(AD, **{"plane_sweep.topology": "CROSS"}),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a small kernel's wrapper call spends its time on an NVIDIA GPU.
 
-    python3 scripts/perf_launch_path.py [--calls 1000] [--e2e]
+    python3 scripts/perf_launch_path.py [--calls 1000] [--kernels] [--e2e]
         [--package-root DIR --tag NAME]
 
 For the hat sampler K9 (the two-view cascade's residual warp, 540x768 with
@@ -34,11 +34,14 @@ work and none of the host's (the spin is lengthened until the host has
 enqueued every launch before it ends). The same for the PyTorch call that
 computes the same function (``torch.gather``, ``grid_sample``).
 
-With ``--e2e``, also the end-to-end times of the paths that run these
-wrappers, CUDA events over warm frames as ``chip_smoke.py`` times them:
-two-view at 540x768x64 (int8, int16, float32 with uniqueness and LR), the
-two-view cascade (540x768, 256 disparities) and the array cascade (5x5 of
-270x360, 128 planes, CROSS).
+With ``--kernels``, every kernel's device time at the main paths' shapes
+(the same spin), on inputs made from a seed: K2/K3 at 540x768x64 int8 and
+int16, 540x768x256 and 270x360x128, K8 at CROSS and to_center, and K1, K4,
+K6, K7, K9 beside them. With ``--e2e``, the end-to-end times of the paths,
+CUDA events over warm frames as ``chip_smoke.py`` times them: two-view at
+540x768x64 (int8, int16, float32 with uniqueness and LR), the flat two-view
+at 540x768x256 and its cascade, the array (5x5 of 270x360, 128 planes) at
+CROSS, to_center and its cascade.
 
 ``--package-root DIR`` imports the package from another checkout (an
 unpacked older commit), so that two versions compare within one call, in
@@ -85,6 +88,8 @@ def main() -> None:
     ap.add_argument("--calls", type=int, default=1000)
     ap.add_argument("--device-iters", type=int, default=200)
     ap.add_argument("--e2e", action="store_true", help="also time the paths end to end")
+    ap.add_argument("--kernels", action="store_true",
+                    help="also time every kernel's device time at the main paths' shapes")
     ap.add_argument("--package-root", type=Path, default=REPO,
                     help="checkout whose stereovisionarray_tpu_torch to time")
     ap.add_argument("--tag", default="", help="suffix of the output file and label of each line")
@@ -238,6 +243,8 @@ def main() -> None:
         emit({"library": name, "host_ns": ns,
               "device_ms": device_ms(torch, fn, args.device_iters), "iters": args.device_iters})
 
+    if args.kernels:
+        kernel_device_times(torch, emit)
     if args.e2e:
         e2e(torch, emit)
     out_dir = REPO / "chiprun_out"
@@ -246,9 +253,84 @@ def main() -> None:
     (out_dir / name).write_text(json.dumps(lines, indent=1))
 
 
+def kernel_device_times(torch, emit, iters: int = 20) -> None:
+    """Device ms of every kernel wrapper at the main paths' shapes, on one
+    set of inputs made from a seed (the same in every checkout): K1, K2/K3 at
+    540x768x64 int8 and int16, at the flat cascade's 540x768x256 and at the
+    array's 270x360x128, K4 with the fused LR check, K6, K7, K8 at CROSS and
+    to_center, K9 and its 2-D form."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
+    from stereovisionarray_tpu_torch.models.array_pipeline import reference_and_sources
+    from stereovisionarray_tpu_torch.models.cascade import SMOOTH_R
+    from stereovisionarray_tpu_torch.models.plane_sweep import translation_shifts
+    from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
+    from stereovisionarray_tpu_torch.ops.extract_cuda import extract_disparity_maps, extract_maps
+    from stereovisionarray_tpu_torch.ops.hatsample import hat_sample, hat_sample_2d
+    from stereovisionarray_tpu_torch.ops.sgm import p2_maps
+    from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_aggregate_paths
+    from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
+
+    def timed(name, fn, **info):
+        emit({"kernel": name, **info, "device_ms": device_ms(torch, fn, iters), "iters": iters})
+
+    rng = np.random.default_rng(0)
+    h, w, D = chip_smoke.BENCH_SHAPE
+    left, right = chip_smoke.stereo_pair(torch, h, w, seed=0)
+    timed("K1 cost_volume", lambda: fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,
+                                                           "int8"), shape=[h, w, D])
+    for shape, dtype in (((h, w, 64), "int8"), ((h, w, 64), "int16"), ((h, w, 256), "int8"),
+                         ((270, 360, 128), "int8")):
+        hh, ww, dd = shape
+        lo, ro = chip_smoke.stereo_pair(torch, hh, ww, seed=1)
+        vol = fused_cost_volume_cuda(lo, ro, dd, (7, 9), 0.25, 32.0, dtype)
+        py, px = p2_maps((hh, ww), 96, torch.int16, lo.device, lo, True, 24)
+        timed("K2/K3 sgm_paths", lambda: sgm_aggregate_paths(vol, py, px, 8, 8), shape=list(shape),
+              dtype=dtype)
+        if shape == (h, w, 64) and dtype == "int8":
+            total = sgm_aggregate_paths(vol, py, px, 8, 8)
+            timed("K4 extract_maps + K5 fused", lambda: extract_maps(
+                total, True, 0.95, lr_max_diff=1.5, right=False), shape=list(shape))
+        del vol
+    fvol = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, "float32")
+    fy, fx = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
+    timed("K7 sgm_float", lambda: sgm_aggregate_float(fvol, fy, fx, 8.0, 8), shape=[h, w, D])
+    ftotal = sgm_aggregate_float(fvol, fy, fx, 8.0, 8)
+    timed("K6 extract_volume", lambda: extract_disparity_maps(ftotal, True, 0.95, 1.5),
+          shape=[h, w, D])
+    del fvol, ftotal
+
+    rows, cols, AH, AW, AD = chip_smoke.ARRAY_SHAPE
+    cams, images, _, _ = chip_smoke.array_cascade_scene(torch, left.device)
+    for name, over in (("cross", {"plane_sweep.topology": "CROSS"}), ("to_center", {})):
+        cfg = config.EngineConfig().override(**{"camera.rows": rows, "camera.cols": cols,
+                                                "plane_sweep.num_planes": AD, **over})
+        ps = cfg.plane_sweep
+        ref_index, src = reference_and_sources(cfg, images.shape[0])
+        depths = inverse_depth_samples(ps.z_near, ps.z_far, ps.num_planes)
+        shifts = torch.from_numpy(np.ascontiguousarray(
+            translation_shifts(cams, ref_index, src, depths).swapaxes(0, 1))).to(left.device)
+        topk = ps.topk if ps.fusion == "topk_mean" and ps.topk < len(src) else None
+        ref, srcs = images[ref_index].contiguous(), images[list(src)].contiguous()
+        timed("K8 plane_sweep", lambda: plane_sweep_census(ref, srcs, shifts, ps.patch,
+                                                           ps.fusion == "mean", topk),
+              run=name, shape=[AH, AW, AD], sources=len(src))
+    values = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32)).to(left.device)
+    t = torch.from_numpy(rng.uniform(-SMOOTH_R - 1.5, SMOOTH_R + 1.5, (h, w))
+                         .astype(np.float32)).to(left.device)
+    aux = torch.from_numpy(rng.uniform(0, 200, w).astype(np.float32)).to(left.device)
+    timed("K9 hat_sample", lambda: hat_sample(values, t, -SMOOTH_R, SMOOTH_R, aux=aux),
+          shape=[h, w])
+    v3 = torch.from_numpy(rng.uniform(0, 255, (4, AH, AW)).astype(np.float32)).to(left.device)
+    t3 = torch.from_numpy(rng.uniform(-40, 40, (4, AH, AW)).astype(np.float32)).to(left.device)
+    timed("K9 hat_sample_2d", lambda: hat_sample_2d(v3, t3, t3, -38, 38), shape=[4, AH, AW])
+
+
 def e2e(torch, emit) -> None:
-    """ms per frame (or frame-set) of the paths that run K5's and K9's
-    wrappers, at chip_smoke.py's configurations."""
+    """ms per frame (or frame-set) of the paths, at chip_smoke.py's
+    configurations: two-view int8, int16 and float32 at 540x768x64, the flat
+    two-view at 540x768x256 and its cascade, the array at CROSS, to_center
+    and its cascade."""
     from stereovisionarray_tpu_torch import config
     from stereovisionarray_tpu_torch.models import array_depth_pipeline, two_view_disparity
 
@@ -258,7 +340,11 @@ def e2e(torch, emit) -> None:
     float_sgm = config.SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True,
                                  uniqueness=0.95, lr_max_diff=1.5)
     tv_left, tv_right, _, _ = chip_smoke.two_view_cascade_scene(torch, pair[0].device)
+    tv_cost, tv_sgm, _ = chip_smoke.two_view_cascade_config(config.CostConfig, config.SGMConfig)
     cams, images, _, casc_cfg = chip_smoke.array_cascade_scene(torch, pair[0].device)
+    rows, cols, AH, AW, AD = chip_smoke.ARRAY_SHAPE
+    array_cfg = config.EngineConfig().override(**{"camera.rows": rows, "camera.cols": cols,
+                                                  "plane_sweep.num_planes": AD})
     runs = {"two_view_int8": (lambda: two_view_disparity(*pair, config.CostConfig(
                 num_disparities=D, census_window=(7, 9), dtype="int8"), sgm), [h, w, D]),
             "two_view_int16": (lambda: two_view_disparity(*pair, config.CostConfig(
@@ -266,12 +352,18 @@ def e2e(torch, emit) -> None:
             "two_view_float32": (lambda: two_view_disparity(*pair, config.CostConfig(
                 num_disparities=D, census_window=(7, 9), dtype="float32"), float_sgm),
                 [h, w, D]),
+            "two_view_flat_d256": (lambda: two_view_disparity(tv_left, tv_right, tv_cost, tv_sgm),
+                                   list(chip_smoke.CASCADE_SHAPE)),
             "two_view_cascade": (lambda: chip_smoke.two_view_cascade_run(tv_left, tv_right),
                                  list(chip_smoke.CASCADE_SHAPE)),
+            "array_cross": (lambda: array_depth_pipeline(images, cams, array_cfg.override(
+                **{"plane_sweep.topology": "CROSS"})), list(chip_smoke.ARRAY_SHAPE)),
+            "array_to_center": (lambda: array_depth_pipeline(images, cams, array_cfg),
+                                list(chip_smoke.ARRAY_SHAPE)),
             "array_cascade": (lambda: array_depth_pipeline(images, cams, casc_cfg),
                               list(chip_smoke.ARRAY_SHAPE))}
     for name, (run, shape) in runs.items():
-        frames = chip_smoke.ARRAY_FRAMES if name == "array_cascade" else chip_smoke.TIMED_FRAMES
+        frames = chip_smoke.ARRAY_FRAMES if name.startswith("array") else chip_smoke.TIMED_FRAMES
         emit({"e2e": name, "shape": shape, "frames": frames,
               "ms": cuda_ms(torch, run, frames)})
 

@@ -13,9 +13,12 @@ launches a kernel. There is no fallback: a kernel that does not build or
 launch raises.
 """
 
+from collections import OrderedDict
+
+import numpy as np
 import torch
 
-__all__ = ["resolve_backend"]
+__all__ = ["host_to_device", "resolve_backend"]
 
 BACKENDS = ("auto", "cuda", "torch", "xla")
 
@@ -32,3 +35,34 @@ def resolve_backend(tensor: torch.Tensor, backend: str = "auto") -> str:
     if backend == "cuda":
         raise ValueError(f"backend='cuda' needs a CUDA tensor, got device {tensor.device}")
     return "torch"
+
+
+_DEVICE_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_DEVICE_TABLES_MAX = 64
+
+
+def host_to_device(a, device) -> torch.Tensor:
+    """A host table (numpy array or CPU tensor) on `device`, values unchanged;
+    the result is shared: read it, never write it.
+
+    A copy from pageable memory to the card waits until the stream has run
+    everything queued before it. The tables of the timed paths (resize
+    weights, plane depths, shift tables) repeat from frame to frame, so a CUDA
+    target keeps the last tables it was given on the card, keyed by their
+    contents, and copies a new one once, staged in pinned memory and
+    asynchronously (``non_blocking``)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    t = t.contiguous()
+    key = (device, t.dtype, tuple(t.shape), t.numpy().tobytes())
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        hit = t.pin_memory().to(device, non_blocking=True)
+        _DEVICE_TABLES[key] = hit
+        if len(_DEVICE_TABLES) > _DEVICE_TABLES_MAX:
+            _DEVICE_TABLES.popitem(last=False)
+    else:
+        _DEVICE_TABLES.move_to_end(key)
+    return hit

@@ -1,4 +1,5 @@
-// K2/K3: the integer SGM path scans, all 4 or 8 paths in one launch.
+// K2/K3: the integer SGM path scans, 4 or 8 paths summed into the int16
+// total by one entry point (svt_sgm_paths).
 // K7 (float costs): the same scans in float32, each path into a partial of
 // its own, then an ordered combine (see "Float aggregation" below).
 //
@@ -12,28 +13,50 @@
 //
 // Here every path is what it is mathematically: a set of independent 1-D
 // lines (W columns for the vertical paths, H rows for the horizontal ones,
-// H + W - 1 lines for each diagonal). One warp owns one line and walks it;
-// the D costs of a pixel lie across the lanes (K = ceil(D / 32) values a
-// lane, contiguous in d), so
-//   min_d' L(p - r, d')  is a register min + a __shfl_xor_sync butterfly,
-//   L(p - r, d -/+ 1)    is a register neighbour or __shfl_up/down_sync,
-// with the reference's BIG = 16000 at d = -1 and d = D. A line's first pixel
-// starts fresh with L = C, which is exactly what the reference's BIG-filled
-// shifted carry and first-row 3*C produce. P2 is the map value at the pixel
-// being updated: p2_y on vertical and diagonal paths, p2_x on horizontal ones.
-// All arithmetic is int32; each path adds its L into an int32 total with
-// atomicAdd (integer sums, so the order of the adds does not matter; the
-// caller narrows the total to the int16 storage dtype, which wraps exactly as
-// the reference's int16 partial sums do).
+// H + W - 1 lines for each diagonal). A line's first pixel starts fresh with
+// L = C, which is exactly what the reference's BIG-filled shifted carry and
+// first-row 3*C produce; the recurrence
+//   L = C + min(prev, min(prev[d-1], prev[d+1]) + P1, m + P2) - m,
+//   m = min_d' prev,
+// runs in int32 with the reference's BIG = 16000 at d = -1 and d = D. P2 is
+// the map value at the pixel being updated: p2_y on vertical and diagonal
+// paths, p2_x on horizontal ones.
 //
-// What bounds it on the H100: each step of a line depends on the previous
-// one, so a warp spends most of a step waiting for its cost load and the
-// shuffles; the work is latency-bound, hidden only by the number of lines in
-// flight (~7,800 warps at 540x768 with 8 paths, about one full H100 of
-// resident warps). Bytes are small: D costs read and D atomic adds per pixel
-// and path, ~1.1 GB at 540x768x64 int8 with 8 paths.
+// Integer design (sgm_family_staged_kernel, sgm_family_scalar_kernel). The
+// paths pair up into four families of the same lines walked both ways:
+// down/up, left->right/right->left, down-right/up-left, down-left/up-right.
+// One group of L lanes owns one line of a family: it walks the line forward,
+// adding that path's L into an int16 buffer, then walks it back adding the
+// reverse path's. Every pixel lies on exactly one line of a family, so each
+// element of a family's buffer has one owner: no atomics. Every walk runs in one launch, each into a buffer of
+// its own (the vertical family into the total; left->right, right->left and
+// each diagonal family into int16 partials), and a sum pass adds the
+// partials into the total. Nothing is zero-filled and there is no int32
+// total to narrow: each path's L is int32 arithmetic, added into the int16
+// storage with wrap, which equals the int32 sum narrowed to int16
+// (two's-complement addition is modular; the order of integer adds is free).
+// A lane holds 8 consecutive d of a pixel, so a line takes L = D / 8 lanes
+// rounded up to a power of two (32 / L lines a warp). min_d' is a register
+// min and a log2(L)-step __shfl_xor_sync butterfly within the line's lanes;
+// the neighbours d -/+ 1 across lanes are __shfl_up/down_sync. Loads leave
+// the serial chain: where D % 8 == 0 and the buffers align (every main
+// path), each lane stages its 8 costs, on the way back its 8 values of the
+// buffer, and its P2 for the next kStages steps in shared memory with
+// cp.async, and writes its 8 sums with one 128-bit store; a scalar form of
+// the same walk (any D, any alignment) loads each value on its own a step
+// ahead.
+//
+// What bounds it on the H100: each step of a line depends on the one before,
+// so the walks take their longest chain of steps times a step's latency (the
+// shuffles and mins), and the bytes: the costs read by every walk, each
+// buffer written, re-read by the way back, summed (~1.1 GB at 540x768x64 with
+// 8 paths, near what HBM gives in the time the chain takes; 4.4 GB at
+// D = 256). (All paths at once
+// into an int32 total with atomicAdd is bound instead by its 212 M scattered
+// atomics at 540x768x64, plus a zero-fill and a narrowing pass.)
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -70,80 +93,414 @@ __device__ __forceinline__ void line_start(int path, int line, int h, int w, int
   }
 }
 
-template <int K, typename CostT>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sgm_paths_kernel(const CostT* __restrict__ cost, const int16_t* __restrict__ p2_y,
-                 const int16_t* __restrict__ p2_x, int* __restrict__ total, int h, int w,
-                 int n_disp, int p1, int num_paths) {
-  const int lane = threadIdx.x & 31;
-  int line = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  int path = 0;
-  for (; path < num_paths; ++path) {
-    const int n = num_lines(path, h, w);
-    if (line < n) break;
-    line -= n;
-  }
-  if (path == num_paths) return;  // whole warp: past the last line
+// ---------------------------------------------------------------------------
+// Integer path scans (K2/K3): the family kernels, see the top of the file.
 
-  const int dy = kDy[path], dx = kDx[path];
-  const int16_t* p2_map = dy != 0 ? p2_y : p2_x;
-  int y, x;
-  line_start(path, line, h, w, &y, &x);
+constexpr int kFamilies = 4;
+// family -> its forward path id; the backward path walks the same lines in
+// reverse (0 down/1 up, 2 lr/3 rl, 4 down-right/7 up-left, 5 down-left/6 up-right)
+__constant__ int kFamilyPath[kFamilies] = {0, 2, 4, 5};
 
-  int prev[K];
-  bool first = true;
-  for (; y >= 0 && y < h && x >= 0 && x < w; y += dy, x += dx) {
-    const size_t pix = static_cast<size_t>(y) * w + x;
-    const CostT* c = cost + pix * n_disp;
-    int cur[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane * K + k;
-      cur[k] = d < n_disp ? static_cast<int>(c[d]) : 0;
-    }
-    if (!first) {
-      int m = INT_MAX;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (lane * K + k < n_disp) m = min(m, prev[k]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(kFull, m, off));
-      const int below = __shfl_up_sync(kFull, prev[K - 1], 1);  // d = lane*K - 1
-      const int above = __shfl_down_sync(kFull, prev[0], 1);    // d = lane*K + K
-      const int jump = m + static_cast<int>(p2_map[pix]);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = lane * K + k;
-        const int lo = d == 0 ? svt::kBigInt : (k > 0 ? prev[k - 1] : below);
-        const int hi = d == n_disp - 1 ? svt::kBigInt : (k < K - 1 ? prev[k + 1] : above);
-        const int best = min(min(prev[k], jump), min(lo, hi) + p1);
-        cur[k] += best - m;
-      }
-    }
-    int* t = total + pix * n_disp;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int d = lane * K + k;
-      if (d < n_disp) atomicAdd(t + d, cur[k]);
-      prev[k] = cur[k];
-    }
-    first = false;
+__host__ __device__ __forceinline__ int family_lines(int fam, int h, int w) {
+  return fam == 0 ? w : (fam == 1 ? h : h + w - 1);
+}
+
+// forward start pixel and length of line `line` of family `fam`
+__device__ __forceinline__ void family_line(int fam, int line, int h, int w, int* y, int* x,
+                                            int* len) {
+  const int path = kFamilyPath[fam];
+  line_start(path, line, h, w, y, x);
+  if (fam == 0) {
+    *len = h;
+  } else if (fam == 1) {
+    *len = w;
+  } else {
+    const int cols = kDx[path] > 0 ? w - *x : *x + 1;  // columns left in the step direction
+    *len = min(h - *y, cols);
   }
 }
 
-template <int K>
-cudaError_t launch_k(const void* cost, int cost_bytes, const int16_t* p2_y, const int16_t* p2_x,
-                     int* total, int h, int w, int n_disp, int p1, int num_paths,
-                     cudaStream_t stream) {
-  const int lines = 2 * w + 2 * h + (num_paths == 8 ? 4 * (h + w - 1) : 0);
-  const int blocks = (lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (cost_bytes == 1)
-    sgm_paths_kernel<K, int8_t><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        static_cast<const int8_t*>(cost), p2_y, p2_x, total, h, w, n_disp, p1, num_paths);
+// sign-extended field j (bits 8j or 16j) of a packed word
+__device__ __forceinline__ int field8(uint32_t word, int j) {
+  return static_cast<int>(word << (24 - 8 * j)) >> 24;
+}
+__device__ __forceinline__ int field16(uint32_t word, int j) {
+  return static_cast<int>(word << (16 - 16 * j)) >> 16;
+}
+
+// The walks of the launch, each into a buffer of its own (so that no element
+// has two writers), the launch's blocks split among them in order. A walk is
+// a family's lines walked forward (pass 0), back (pass 1) or both; its first
+// pass writes its L into `out`, its second reads `out`, adds, writes back.
+constexpr int kMaxWalks = 5;
+struct Launch {
+  int n;  // walks
+  int fam[kMaxWalks];
+  int first_pass[kMaxWalks], last_pass[kMaxWalks];
+  int16_t* out[kMaxWalks];
+  int block_end[kMaxWalks];  // running block counts: walk j takes [block_end[j-1], block_end[j])
+};
+
+// Shared by both forms: the walk of this block, and this lane's line.
+struct LineSetup {
+  int16_t* out;
+  const int16_t* p2m;
+  long long first_pix, stride;
+  int len, steps, first_pass, last_pass;
+};
+
+template <int L>
+__device__ __forceinline__ LineSetup line_setup(const Launch& job, int h, int w,
+                                                const int16_t* p2_y, const int16_t* p2_x) {
+  int j = 0;
+  while (j < job.n - 1 && static_cast<int>(blockIdx.x) >= job.block_end[j]) ++j;
+  const int fam = job.fam[j];
+  const int block = blockIdx.x - (j > 0 ? job.block_end[j - 1] : 0);
+  const int lane = threadIdx.x & 31;
+  const int line = (block * kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / L) + lane / L;
+  int y = 0, x = 0, len = 0;
+  if (line < family_lines(fam, h, w)) family_line(fam, line, h, w, &y, &x, &len);
+  const int path = kFamilyPath[fam];
+  LineSetup ls;
+  ls.out = job.out[j];
+  ls.p2m = fam == 1 ? p2_x : p2_y;
+  ls.stride = static_cast<long long>(kDy[path]) * w + kDx[path];
+  ls.first_pix = static_cast<long long>(y) * w + x;
+  ls.len = len;
+  ls.steps = __reduce_max_sync(kFull, len);
+  ls.first_pass = job.first_pass[j];
+  ls.last_pass = job.last_pass[j];
+  return ls;
+}
+
+constexpr int kVals = 8;  // consecutive d a lane holds
+
+// --- the vector form: D % 8 == 0 and aligned buffers ------------------------
+// Each lane stages its own 8 costs, on the second pass its 8 values of `out`,
+// and the 32-bit word holding its P2 for the next kStages steps of its line
+// in shared memory with cp.async (a ring of kStages steps a warp), so the
+// loads run kStages steps ahead without holding registers or scoreboards.
+// The buffer stays packed: its values and the step's L are added two int16
+// at a time (__vadd2, which wraps each half as the int16 storage does).
+constexpr int kStages = 8;
+constexpr int kFieldBytes = 32 * 16;                  // a 16-byte slot a lane
+constexpr int kStageBytes = 2 * kFieldBytes + 32 * 4;  // cost, out, P2 words
+constexpr int kStagedSmem = kWarpsPerBlock * kStages * kStageBytes;  // 36 KB: no opt-in
+
+template <int N>
+struct alignas(4 * N) Words {
+  uint32_t w[N];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (BYTES == 16)  // through L2 only: the buffers are written by these kernels
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
   else
-    sgm_paths_kernel<K, int16_t><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        static_cast<const int16_t*>(cost), p2_y, p2_x, total, h, w, n_disp, p1, num_paths);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(BYTES)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int L, typename CostT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sgm_family_staged_kernel(const CostT* __restrict__ cost, const int16_t* __restrict__ p2_y,
+                         const int16_t* __restrict__ p2_x, Launch job, int h, int w, int n_disp,
+                         int p1) {
+  using CostChunk = Words<kVals * static_cast<int>(sizeof(CostT)) / 4>;
+  using BufChunk = Words<kVals / 2>;  // 8 int16
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LineSetup ls = line_setup<L>(job, h, w, p2_y, p2_x);
+  if (ls.steps == 0) return;  // whole warp: past the last line
+  const int lane = threadIdx.x & 31;
+  const int d0 = (lane & (L - 1)) * kVals;
+  const bool has = d0 < n_disp;  // D % 8 == 0: a lane's 8 values are all in range or none
+  unsigned char* ring = smem + (threadIdx.x >> 5) * kStages * kStageBytes;
+
+  for (int pass = ls.first_pass; pass <= ls.last_pass; ++pass) {
+    // the second pass adds to what the first wrote
+    const bool adds = pass != ls.first_pass;
+    if (adds) __threadfence_block();  // the first pass's stores, then their copies
+    const long long start = pass == 0 ? ls.first_pix : ls.first_pix + (ls.len - 1) * ls.stride;
+    const long long step = pass == 0 ? ls.stride : -ls.stride;
+    auto issue = [&](int i) {  // the copies of step i into its stage; one group a step
+      if (i < ls.len) {
+        unsigned char* st = ring + (i % kStages) * kStageBytes;
+        const long long pix = start + i * step;
+        const long long e = pix * n_disp + d0;
+        if (has) {
+          cp_async<sizeof(CostChunk)>(st + lane * 16, cost + e);
+          if (adds) cp_async<16>(st + kFieldBytes + lane * 16, ls.out + e);
+        }
+        const uintptr_t p2a = reinterpret_cast<uintptr_t>(ls.p2m + pix);
+        cp_async<4>(st + 2 * kFieldBytes + lane * 4, reinterpret_cast<const void*>(p2a & ~3ull));
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) issue(i);
+    int prev[kVals];
+    for (int i = 0; i < ls.steps; ++i) {
+      cp_async_wait<kStages - 1>();  // step i's group has landed
+      const unsigned char* st = ring + (i % kStages) * kStageBytes;
+      const long long pix = start + i * step;
+      const CostChunk cw = *reinterpret_cast<const CostChunk*>(st + lane * 16);
+      int cur[kVals];
+#pragma unroll
+      for (int k = 0; k < kVals; ++k) {
+        if constexpr (sizeof(CostT) == 1)
+          cur[k] = field8(cw.w[k / 4], k % 4);
+        else
+          cur[k] = field16(cw.w[k / 2], k % 2);
+      }
+      BufChunk base;
+      if (adds) {
+        base = *reinterpret_cast<const BufChunk*>(st + kFieldBytes + lane * 16);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kVals / 2; ++q) base.w[q] = 0;
+      }
+      const uint32_t p2w = *reinterpret_cast<const uint32_t*>(st + 2 * kFieldBytes + lane * 4);
+      const int p2 = field16(p2w, (reinterpret_cast<uintptr_t>(ls.p2m + pix) >> 1) & 1);
+      issue(i + kStages);  // refill this stage: its values are in registers now
+      if (i > 0) {
+        int m = INT_MAX;
+        if (has) {
+#pragma unroll
+          for (int k = 0; k < kVals; ++k) m = min(m, prev[k]);
+        }
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(kFull, m, off, L));
+        int below = __shfl_up_sync(kFull, prev[kVals - 1], 1, L);  // d = d0 - 1
+        int above = __shfl_down_sync(kFull, prev[0], 1, L);        // d = d0 + 8
+        if (d0 == 0) below = svt::kBigInt;
+        if (d0 + kVals == n_disp) above = svt::kBigInt;
+        const int jump = m + p2;
+#pragma unroll
+        for (int k = 0; k < kVals; ++k) {
+          const int lo = k > 0 ? prev[k - 1] : below;
+          const int hi = k < kVals - 1 ? prev[k + 1] : above;
+          cur[k] += min(min(prev[k], jump), min(lo, hi) + p1) - m;
+        }
+      }
+      if (has && i < ls.len) {
+        BufChunk o;
+#pragma unroll
+        for (int q = 0; q < kVals / 2; ++q)
+          o.w[q] = __vadd2(base.w[q], (static_cast<uint32_t>(cur[2 * q]) & 0xffffu) |
+                                          (static_cast<uint32_t>(cur[2 * q + 1]) << 16));
+        *reinterpret_cast<BufChunk*>(ls.out + pix * n_disp + d0) = o;
+      }
+#pragma unroll
+      for (int k = 0; k < kVals; ++k) prev[k] = cur[k];
+    }
+    cp_async_wait<0>();
+  }
+}
+
+// --- the scalar form: any D, any alignment ----------------------------------
+// A register ring of kScalarRing steps; each value is loaded on its own with
+// d < D checks, the buffers through L2 (__ldcg: these kernels write them).
+constexpr int kScalarRing = 2;
+
+template <typename CostT>
+struct ScalarSlot {
+  int c[kVals];
+  int t[kVals];
+  int p2;
+  // `own`: the buffer the second pass adds to (nullptr on the first pass)
+  __device__ __forceinline__ void load(const CostT* cost, const int16_t* p2m, long long pix,
+                                       int n_disp, int d0, const int16_t* own) {
+#pragma unroll
+    for (int k = 0; k < kVals; ++k) {
+      const int d = d0 + k;
+      const long long e = pix * n_disp + d;
+      c[k] = d < n_disp ? static_cast<int>(__ldg(cost + e)) : 0;
+      t[k] = d < n_disp && own != nullptr ? static_cast<int>(__ldcg(own + e)) : 0;
+    }
+    p2 = __ldg(p2m + pix);
+  }
+};
+
+template <int L, typename CostT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sgm_family_scalar_kernel(const CostT* __restrict__ cost, const int16_t* __restrict__ p2_y,
+                         const int16_t* __restrict__ p2_x, Launch job, int h, int w, int n_disp,
+                         int p1) {
+  const LineSetup ls = line_setup<L>(job, h, w, p2_y, p2_x);
+  if (ls.steps == 0) return;  // whole warp: past the last line
+  const int lane = threadIdx.x & 31;
+  const int d0 = (lane & (L - 1)) * kVals;
+
+  for (int pass = ls.first_pass; pass <= ls.last_pass; ++pass) {
+    const long long start = pass == 0 ? ls.first_pix : ls.first_pix + (ls.len - 1) * ls.stride;
+    const long long step = pass == 0 ? ls.stride : -ls.stride;
+    const int16_t* own = pass == ls.first_pass ? nullptr : ls.out;
+    ScalarSlot<CostT> ring[kScalarRing];
+#pragma unroll
+    for (int r = 0; r < kScalarRing; ++r)
+      if (r < ls.len) ring[r].load(cost, ls.p2m, start + r * step, n_disp, d0, own);
+    int prev[kVals];
+    for (int i0 = 0; i0 < ls.steps; i0 += kScalarRing) {
+#pragma unroll
+      for (int r = 0; r < kScalarRing; ++r) {
+        const int i = i0 + r;
+        if (i >= ls.steps) break;  // uniform across the warp
+        int cur[kVals];
+#pragma unroll
+        for (int k = 0; k < kVals; ++k) cur[k] = ring[r].c[k];
+        if (i > 0) {
+          int m = INT_MAX;
+#pragma unroll
+          for (int k = 0; k < kVals; ++k)
+            if (d0 + k < n_disp) m = min(m, prev[k]);
+          int below = __shfl_up_sync(kFull, prev[kVals - 1], 1, L);
+          int above = __shfl_down_sync(kFull, prev[0], 1, L);
+          if (d0 == 0) below = svt::kBigInt;
+          // d = D - 1 has BIG above it, whether d + 1 is in this lane or the next
+          int nxt[kVals];
+#pragma unroll
+          for (int k = 0; k < kVals; ++k)
+            nxt[k] = d0 + k == n_disp - 1 ? svt::kBigInt : (k < kVals - 1 ? prev[k + 1] : above);
+#pragma unroll
+          for (int off = L / 2; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(kFull, m, off, L));
+          const int jump = m + ring[r].p2;
+#pragma unroll
+          for (int k = 0; k < kVals; ++k) {
+            const int lo = k > 0 ? prev[k - 1] : below;
+            cur[k] += min(min(prev[k], jump), min(lo, nxt[k]) + p1) - m;
+          }
+        }
+        if (i < ls.len) {
+          const long long pix = start + i * step;
+#pragma unroll
+          for (int k = 0; k < kVals; ++k)
+            if (d0 + k < n_disp)
+              ls.out[pix * n_disp + d0 + k] = static_cast<int16_t>(ring[r].t[k] + cur[k]);
+          if (i + kScalarRing < ls.len)
+            ring[r].load(cost, ls.p2m, start + (i + kScalarRing) * step, n_disp, d0, own);
+        }
+#pragma unroll
+        for (int k = 0; k < kVals; ++k) prev[k] = cur[k];
+      }
+    }
+  }
+}
+
+// total += the sum of `n_parts` (n,) int16 partials laid end to end, with
+// wrap: 8 elements a thread in 128-bit words (vec), else one.
+__global__ void __launch_bounds__(256)
+sgm_sum_partials_kernel(int16_t* __restrict__ total, const int16_t* __restrict__ parts,
+                        int n_parts, size_t n, int vec) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (vec) {
+    if (i * 8 >= n) return;
+    uint4 acc = reinterpret_cast<const uint4*>(total)[i];
+    for (int j = 0; j < n_parts; ++j) {
+      const uint4 t = __ldcs(reinterpret_cast<const uint4*>(parts + j * n) + i);
+      acc = make_uint4(__vadd2(acc.x, t.x), __vadd2(acc.y, t.y), __vadd2(acc.z, t.z),
+                       __vadd2(acc.w, t.w));
+    }
+    reinterpret_cast<uint4*>(total)[i] = acc;
+  } else {
+    if (i >= n) return;
+    int acc = total[i];
+    for (int j = 0; j < n_parts; ++j) acc += parts[j * n + i];
+    total[i] = static_cast<int16_t>(acc);
+  }
+}
+
+// One launch of the walks in `job`: the staged form (vec), else the scalar
+// one; L lanes a line.
+template <int L, typename CostT>
+cudaError_t launch_job(const CostT* cost, const int16_t* p2_y, const int16_t* p2_x, Launch job,
+                       int h, int w, int n_disp, int p1, bool vec, cudaStream_t stream) {
+  int blocks = 0;
+  for (int j = 0; j < job.n; ++j) {
+    const int warps = (family_lines(job.fam[j], h, w) + 32 / L - 1) / (32 / L);
+    blocks += (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    job.block_end[j] = blocks;
+  }
+  if (vec) {
+    sgm_family_staged_kernel<L, CostT><<<blocks, kWarpsPerBlock * 32, kStagedSmem, stream>>>(
+        cost, p2_y, p2_x, job, h, w, n_disp, p1);
+  } else {
+    sgm_family_scalar_kernel<L, CostT><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+        cost, p2_y, p2_x, job, h, w, n_disp, p1);
+  }
   return cudaGetLastError();
+}
+
+// int16 partial buffers beside the total (ops/sgm_cuda.py allocates them)
+__host__ __device__ constexpr int scratch_partials(int num_paths) { return num_paths == 8 ? 4 : 2; }
+
+void add_walk(Launch* job, int fam, int first_pass, int last_pass, int16_t* out) {
+  const int j = job->n++;
+  job->fam[j] = fam;
+  job->first_pass[j] = first_pass;
+  job->last_pass[j] = last_pass;
+  job->out[j] = out;
+}
+
+// The schedule: every walk in one launch, each into a buffer of its own (the
+// vertical family both ways into the total; left->right and right->left each
+// into a partial, a line of W steps each rather than one walk of 2W; with 8
+// paths each diagonal family both ways into a partial), then a sum pass adds
+// the partials into the total. The launch takes the chain of its longest
+// walk, 2 * max(H, min(H, W)) or W steps, and the buffers' traffic.
+template <int L, typename CostT>
+cudaError_t launch_families(const CostT* cost, const int16_t* p2_y, const int16_t* p2_x,
+                            int16_t* total, int16_t* scratch, int h, int w, int n_disp, int p1,
+                            int num_paths, bool vec, cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(h) * w * n_disp;
+  Launch all{};
+  add_walk(&all, 0, 0, 1, total);
+  add_walk(&all, 1, 0, 0, scratch);
+  add_walk(&all, 1, 1, 1, scratch + n);
+  if (num_paths == 8) {
+    add_walk(&all, 2, 0, 1, scratch + 2 * n);
+    add_walk(&all, 3, 0, 1, scratch + 3 * n);
+  }
+  const cudaError_t err = launch_job<L>(cost, p2_y, p2_x, all, h, w, n_disp, p1, vec, stream);
+  if (err != cudaSuccess) return err;
+  const size_t threads = vec ? n / 8 : n;
+  sgm_sum_partials_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      total, scratch, scratch_partials(num_paths), n, vec);
+  return cudaGetLastError();
+}
+
+// The staged form where D % 8 == 0 and every buffer is 16-byte aligned (the
+// costs to their 8-value chunk), else the scalar one.
+template <typename CostT>
+cudaError_t launch_int(const void* cost, const int16_t* p2_y, const int16_t* p2_x,
+                       int16_t* total, int16_t* scratch, int h, int w, int n_disp, int p1,
+                       int num_paths, cudaStream_t s) {
+  const auto* c = static_cast<const CostT*>(cost);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(cost) % (kVals * sizeof(CostT)) |
+                          reinterpret_cast<uintptr_t>(total) % 16 |
+                          reinterpret_cast<uintptr_t>(scratch) % 16;
+  const bool vec = n_disp % kVals == 0 && align == 0;
+  const int lanes = (n_disp + kVals - 1) / kVals;
+#define SVT_LAUNCH(L) \
+  launch_families<L>(c, p2_y, p2_x, total, scratch, h, w, n_disp, p1, num_paths, vec, s)
+  if (lanes <= 1) return SVT_LAUNCH(1);
+  if (lanes <= 2) return SVT_LAUNCH(2);
+  if (lanes <= 4) return SVT_LAUNCH(4);
+  if (lanes <= 8) return SVT_LAUNCH(8);
+  if (lanes <= 16) return SVT_LAUNCH(16);
+  return SVT_LAUNCH(32);
+#undef SVT_LAUNCH
 }
 
 // ---------------------------------------------------------------------------
@@ -153,9 +510,9 @@ cudaError_t launch_k(const void* cost, int cost_bytes, const int16_t* p2_y, cons
 // _sweep_hdw_bidir and sgm_extract_fused_hdw/_wdh).
 //
 // Float sums are not associative, and every reference route sums the paths
-// in its own order, so the integer design (atomicAdd of each path into one
-// total) cannot serve them: float atomics land in a different order on every
-// run. Here sgm_paths_f32_kernel runs the same warp-per-line scans in
+// in its own order, so the integer design (each pair of opposite paths
+// adding into a buffer, in whatever order the schedule picks) cannot serve
+// them. Here sgm_paths_f32_kernel runs the same warp-per-line scans in
 // float32, with the reference's float recurrence evaluated in its order,
 //   L = C + (min(prev, m + P2, min(lo, hi) + P1) - m),  m = min_d' prev,
 // BIG = 1e9 at d = -1 and d = D, and writes each path into a partial of its
@@ -358,19 +715,23 @@ SVT_API int svt_sgm_combine_f32(const void* partial, void* out, int h, int w, in
 }
 
 // cost: (H, W, D) int8 (cost_bytes 1) or int16 (2); p2_y/p2_x: (H, W) int16;
-// total32: (H, W, D) int32, zero on entry, receives the sum over the paths.
+// total: (H, W, D) int16, written (its contents on entry are never read):
+// the sum over the 4 or 8 paths, wrapped into int16; scratch: (P, H, W, D)
+// int16 partials, clobbered, P = 4 (8 paths) or 2 (4 paths). Two launches in
+// stream order: the walks, then the sum of the partials.
 SVT_API int svt_sgm_paths(const void* cost, int cost_bytes, const void* p2_y, const void* p2_x,
-                          void* total32, int h, int w, int n_disp, int p1, int num_paths,
-                          void* stream) {
+                          void* total, void* scratch, int h, int w, int n_disp, int p1,
+                          int num_paths, void* stream) {
   if (h <= 0 || w <= 0 || n_disp < 1 || n_disp > 256 || (num_paths != 4 && num_paths != 8) ||
-      (cost_bytes != 1 && cost_bytes != 2))
+      (cost_bytes != 1 && cost_bytes != 2) ||
+      scratch == nullptr)
     return cudaErrorInvalidValue;
   const auto* py = static_cast<const int16_t*>(p2_y);
   const auto* px = static_cast<const int16_t*>(p2_x);
-  auto* t = static_cast<int*>(total32);
+  auto* t = static_cast<int16_t*>(total);
+  auto* sc = static_cast<int16_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n_disp <= 32) return launch_k<1>(cost, cost_bytes, py, px, t, h, w, n_disp, p1, num_paths, s);
-  if (n_disp <= 64) return launch_k<2>(cost, cost_bytes, py, px, t, h, w, n_disp, p1, num_paths, s);
-  if (n_disp <= 128) return launch_k<4>(cost, cost_bytes, py, px, t, h, w, n_disp, p1, num_paths, s);
-  return launch_k<8>(cost, cost_bytes, py, px, t, h, w, n_disp, p1, num_paths, s);
+  if (cost_bytes == 1)
+    return launch_int<int8_t>(cost, py, px, t, sc, h, w, n_disp, p1, num_paths, s);
+  return launch_int<int16_t>(cost, py, px, t, sc, h, w, n_disp, p1, num_paths, s);
 }

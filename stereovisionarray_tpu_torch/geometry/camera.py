@@ -128,7 +128,8 @@ class CameraArray:
         R_rel = torch.einsum("sik,jk->sij", self.R[src], R_ref)
         t_rel = self.t[src] - torch.einsum("sij,j->si", R_rel, t_ref)
         K_ref_inv = torch.linalg.inv(self.K[ref])
-        n = torch.tensor([0.0, 0.0, 1.0], dtype=self.fx.dtype, device=self.fx.device)
+        n = torch.zeros(3, dtype=self.fx.dtype, device=self.fx.device)
+        n[2] = 1.0  # a fill on the device: no host-to-device copy waits for the stream
         tnT = torch.einsum("si,j->sij", t_rel, n)
         mid = R_rel[:, None] + tnT[:, None] / depth[None, :, None, None]
         return torch.einsum("sij,sdjk,kl->sdil", self.K[src], mid, K_ref_inv)

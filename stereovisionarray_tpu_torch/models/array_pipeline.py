@@ -162,7 +162,7 @@ def array_depth_pipeline(
     # the largest accumulated refinement offsets
     d_ceiling = f_px * b0 / cfg.plane_sweep.z_near + (
         abs(rcfg.radius * rcfg.step) + 0.5 * abs(rcfg.step)) * max(rcfg.iterations, 1)
-    ref_img, aux = images[ref_index], images[list(src_indices)]
+    ref_img, aux = images[ref_index], torch.stack([images[i] for i in src_indices])
     for _ in range(max(rcfg.iterations, 0)):
         refined = multiview_refine(ref_img, aux, baselines, refined, mask=mask & sweep.valid,
                                    radius=rcfg.radius, step=rcfg.step, window=rcfg.window,

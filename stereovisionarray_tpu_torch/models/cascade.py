@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from stereovisionarray_tpu_torch.backend import host_to_device
 from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
 from stereovisionarray_tpu_torch.models.cascade_sweep import (
     area_downsample,
@@ -86,17 +87,23 @@ def _linear_resize_weights(m: int, n: int) -> np.ndarray:
     return np.where(inside[None, :], wts, f32(0.0)).astype(f32)
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_weights_on(m: int, n: int, device: torch.device) -> torch.Tensor:
+    """:func:`_linear_resize_weights` on `device`, copied once per shape (a
+    table of up to a few hundred KB: looking it up by its contents each frame
+    would cost more than the resize)."""
+    return host_to_device(_linear_resize_weights(m, n), device)
+
+
 def resize_linear(x: torch.Tensor, shape) -> torch.Tensor:
     """Twin of ``jax.image.resize(x, shape, method="linear")`` for an (h, w)
     map: the reference's weight matrices, contracted as matrix products
     (rows, then columns); an axis whose size does not change is left alone."""
     out = x
     if shape[0] != x.shape[0]:
-        wh = torch.from_numpy(_linear_resize_weights(x.shape[0], shape[0])).to(x.device)
-        out = wh.T @ out
+        out = _resize_weights_on(x.shape[0], shape[0], x.device).T @ out
     if shape[1] != x.shape[1]:
-        ww = torch.from_numpy(_linear_resize_weights(x.shape[1], shape[1])).to(x.device)
-        out = out @ ww
+        out = out @ _resize_weights_on(x.shape[1], shape[1], x.device)
     return out
 
 

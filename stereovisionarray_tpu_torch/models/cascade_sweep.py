@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from stereovisionarray_tpu_torch.backend import host_to_device
 from stereovisionarray_tpu_torch.config import PlaneSweepConfig, SGMConfig
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples
@@ -174,7 +175,7 @@ def _coarse_band_prewarp(images, cameras, ref_index, src_indices, cfg: PlaneSwee
     n, h, w = images.shape
     dev = images.device
     src = [int(i) for i in src_indices]
-    src_images = images[src].contiguous()
+    src_images = torch.stack([images[i] for i in src])  # a list index would be copied to the card
     n_src = len(src)
 
     # ---- coarse pass on the downsampled rig ----------------------------------
@@ -206,8 +207,8 @@ def _coarse_band_prewarp(images, cameras, ref_index, src_indices, cfg: PlaneSwee
             Kv = torch.stack([shifted(K_star, dy, dx) for dy, dx in band_offsets])
         else:
             Kv = K_star.expand(n_src, h, w)
-        a_t = torch.from_numpy(a).to(dev)[..., None, None]
-        c_t = torch.from_numpy(c).to(dev)[..., None, None]
+        a_t = host_to_device(a, dev)[..., None, None]
+        c_t = host_to_device(c, dev)[..., None, None]
         su = a_t[:, 0] + c_t[:, 0] * Kv
         sv = a_t[:, 1] + c_t[:, 1] * Kv
         # vertical pass along the rows, then horizontal: all sources, one launch
@@ -222,7 +223,7 @@ def _coarse_band_prewarp(images, cameras, ref_index, src_indices, cfg: PlaneSwee
     starts = np.array([min(b * q, total - df) for b in range(n_bands)], dtype=np.float32)
     band_shifts = a[None] + c[None] * starts[:, None, None]  # (n_bands, S, 2)
     padded = torch.nn.functional.pad(src_images, (pad, pad, pad, pad))
-    per_band = _shift_warp(padded, torch.from_numpy(band_shifts).to(dev), h, w, pad)
+    per_band = _shift_warp(padded, host_to_device(band_shifts, dev), h, w, pad)
     wsrc = per_band.gather(0, bv.to(torch.int64)[None])[0]
     return wsrc, offset, a, c, depths_full
 
@@ -288,8 +289,8 @@ def cascade_plane_sweep_depth(
     step = (1.0 / cfg.z_far - inv_near) / max(total - 1, 1)
     depth = torch.reciprocal((k_full * step + inv_near).clamp_min(1e-9))
     # true per-view visibility at the winning plane, in the original frame
-    a_t = torch.from_numpy(a).to(dev)[..., None, None]
-    c_t = torch.from_numpy(c).to(dev)[..., None, None]
+    a_t = host_to_device(a, dev)[..., None, None]
+    c_t = host_to_device(c, dev)[..., None, None]
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
     v = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
     pu = u + a_t[:, 0] + c_t[:, 0] * k_full[None]

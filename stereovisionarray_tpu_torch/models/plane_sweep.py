@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from stereovisionarray_tpu_torch.config import PlaneSweepConfig, SGMConfig
-from stereovisionarray_tpu_torch.backend import resolve_backend
+from stereovisionarray_tpu_torch.backend import host_to_device, resolve_backend
 from stereovisionarray_tpu_torch.geometry.camera import CameraArray
 from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples
 from stereovisionarray_tpu_torch.ops.census import census_transform, hamming_distance
@@ -241,8 +241,8 @@ def plane_sweep_volume(
     elif isinstance(depths, torch.Tensor):
         depths = depths.detach().cpu().numpy()
     depths = np.asarray(depths, dtype=np.float32)
-    depths_t = torch.from_numpy(depths).to(images.device)
-    src_images = images[src].contiguous()
+    depths_t = host_to_device(depths, images.device).clone()  # returned: the caller's own
+    src_images = torch.stack([images[i] for i in src])  # a list index would be copied to the card
     xla = resolve_backend(images, backend) == "xla"  # also validates against the device
     if shifts is not None and shift_pad <= 0:
         raise ValueError("explicit shifts require the translation fast path (shift_pad > 0)")
@@ -254,8 +254,8 @@ def plane_sweep_volume(
     if shifts is None:
         shifts = translation_shifts(cameras, ref_index, src, depths)
     if not isinstance(shifts, torch.Tensor):
-        shifts = torch.from_numpy(np.asarray(shifts, dtype=np.float32))
-    shifts = shifts.to(device=images.device, dtype=torch.float32).transpose(0, 1).contiguous()
+        shifts = np.asarray(shifts, dtype=np.float32)
+    shifts = host_to_device(shifts, images.device).to(torch.float32).transpose(0, 1).contiguous()
     S = len(src)
     mean_fusion = cfg.fusion == "mean" or (cfg.fusion == "topk_mean" and cfg.topk >= S)
     kernel_topk = (int(cfg.topk) if cfg.fusion == "topk_mean" and 1 <= cfg.topk < S else None)
@@ -303,7 +303,7 @@ def _volume_to_maps(vol: torch.Tensor, ref_image: torch.Tensor, cfg: PlaneSweepC
         if quantize:  # integer total (K2/K3): K4
             total = sgm_aggregate_paths(q, p2_y, p2_x, pen(sgm_cfg.p1), sgm_cfg.num_paths,
                                         backend)
-            maps = extract_maps(total, True, 0.0, backend)
+            maps = extract_maps(total, True, 0.0, backend, right=False)  # nothing reads it
         else:  # float total (K7, wdh order): K6
             total = sgm_aggregate_float(q, p2_y, p2_x, sgm_cfg.p1, sgm_cfg.num_paths,
                                         order="wdh", backend=backend)

@@ -79,9 +79,11 @@ def scaled_penalties(cost_cfg: CostConfig, sgm_cfg: SGMConfig, dtype) -> Penalti
 def _guarded_inverse(x: torch.Tensor, baseline: float, focal_px: float, eps: float,
                      invalid_fill: float) -> torch.Tensor:
     """B * f_px / x where x > eps, `invalid_fill` elsewhere (B * f_px rounded
-    once to float32, as the reference's weakly typed scalar is)."""
+    once to float32, as the reference's weakly typed scalar is). The scalar
+    stays a 0-dim CPU tensor: a copy of it to the card would wait for the
+    stream."""
     ok = x > eps
-    bf = torch.tensor(baseline * focal_px, dtype=x.dtype, device=x.device)
+    bf = torch.tensor(baseline * focal_px, dtype=x.dtype)
     return torch.where(ok, bf / torch.where(ok, x, 1.0), invalid_fill)
 
 

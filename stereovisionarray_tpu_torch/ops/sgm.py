@@ -141,7 +141,7 @@ def _scan_setup(vol, p2_y, p2_x, p1):
         return (vol.to(torch.int32), (p2_y.to(torch.int32), p2_x.to(torch.int32)), int(p1),
                 _step_int, BIG_INT)
     return (vol, (p2_y.to(vol.dtype), p2_x.to(vol.dtype)),
-            torch.tensor(p1, dtype=vol.dtype, device=vol.device), _step_float, BIG_FLOAT)
+            torch.tensor(p1, dtype=vol.dtype), _step_float, BIG_FLOAT)  # 0-dim on the CPU: no wait
 
 
 # ---------------------------------------------------------------------------

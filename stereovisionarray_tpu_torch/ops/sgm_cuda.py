@@ -2,13 +2,16 @@
 costs) and the twins of the reference's other sweep entry points, K10-K12
 (twins of the sweep kernels of ``stereovisionarray_tpu/ops/sgm_pallas.py``).
 
-``csrc/sgm_paths.cu`` holds two kernel families, both one warp per path line
-with D across the lanes:
+``csrc/sgm_paths.cu`` holds two kernel families, both a group of lanes per
+path line with D across its lanes:
 
  - integer costs (K2/K3: ``_sweep_kernel_hdw_stacked``, ``_sweep_kernel_hdw``
-   and the sweep half of ``_rl_extract_kernel``): every path adds into one
-   int32 total with atomics, exact in any order; plain twin
-   ``ops/sgm.aggregate_paths``;
+   and the sweep half of ``_rl_extract_kernel``): each pair of opposite
+   paths walks its lines (both ways, or each way on its own) into an int16
+   buffer of its own with plain reads and writes, all at once, and a sum
+   pass adds the buffers into the int16 total (``ops/sgm.sum_dtype``); int16
+   addition wraps, which equals the int32 sum narrowed, in any order of
+   adds; plain twin ``ops/sgm.aggregate_paths``;
  - float32 costs (K7, the float use of the same sweep kernels through
    ``sgm_aggregate_pallas_sweeps``): each path writes a partial of its own,
    and an ordered combine sums them per element in the order of the
@@ -37,7 +40,6 @@ from stereovisionarray_tpu_torch.ops.sgm import (
     combine_partials,
     p2_maps,
     path_partials,
-    sum_dtype,
     sweep_paths,
 )
 
@@ -50,9 +52,18 @@ def _check_disparities(D: int) -> None:
         raise ValueError(f"num_disparities must be in [3, {MAX_DISPARITIES}], got {D}")
 
 
+def scratch_partials(num_paths: int) -> int:
+    """int16 partial buffers beside the total that the integer scans write
+    (``csrc/sgm_paths.cu`` scratch_partials): every walk runs at once, the
+    vertical family into the total, each other walk into a partial that a
+    sum pass adds in."""
+    return 4 if num_paths == 8 else 2
+
+
 def _launch_int(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
                 num_paths: int) -> torch.Tensor:
-    """One launch of the integer path scans: the (H, W, D) int32 sum."""
+    """The integer path scans: the (H, W, D) sum in the int16 storage dtype,
+    written by the kernels (one entry point, two launches in stream order)."""
     if num_paths not in (4, 8):
         raise ValueError("num_paths must be 4 or 8")
     h, w, D = vol.shape
@@ -60,10 +71,12 @@ def _launch_int(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
     _native.check(vol, "vol", vol.dtype, (h, w, D))
     _native.check(p2_y, "p2_y", torch.int16, (h, w))
     _native.check(p2_x, "p2_x", torch.int16, (h, w))
-    total = torch.zeros((h, w, D), dtype=torch.int32, device=vol.device)
+    total = torch.empty((h, w, D), dtype=torch.int16, device=vol.device)
+    scratch = torch.empty((scratch_partials(num_paths), h, w, D), dtype=torch.int16,
+                          device=vol.device)
     _native.launch(
         "svt_sgm_paths", vol.device, vol.data_ptr(), vol.element_size(), p2_y.data_ptr(),
-        p2_x.data_ptr(), total.data_ptr(), h, w, D, int(p1), num_paths,
+        p2_x.data_ptr(), total.data_ptr(), scratch.data_ptr(), h, w, D, int(p1), num_paths,
     )
     return total
 
@@ -83,9 +96,7 @@ def sgm_aggregate_paths(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tenso
         return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
     total = _launch_int(vol, p2_y, p2_x, p1, num_paths)
     sgm_aggregate_paths.launches += 1
-    # int32 sums wrap into the int16 storage dtype exactly as the reference's
-    # int16 partial sums do (two's-complement arithmetic is modular)
-    return total.to(sum_dtype(vol.dtype))
+    return total
 
 
 sgm_aggregate_paths.launches = 0
@@ -160,7 +171,7 @@ def sgm_aggregate_hwd(vol: torch.Tensor, p1: float = 8.0, p2: float = 96.0,
             return aggregate_paths_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10")
         return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
     out = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10") if floating
-           else _launch_int(vol, p2_y, p2_x, p1, num_paths).to(vol.dtype))
+           else _launch_int(vol, p2_y, p2_x, p1, num_paths))
     sgm_aggregate_hwd.launches += 1
     return out
 
@@ -207,7 +218,7 @@ def sgm_extract_fused(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor,
         return extract_cuda.extract_disparity_maps(total, subpixel, uniqueness, lr_max_diff,
                                                    backend)
     total = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k12") if floating
-             else _launch_int(vol, p2_y, p2_x, p1, num_paths).to(sum_dtype(vol.dtype)))
+             else _launch_int(vol, p2_y, p2_x, p1, num_paths))
     maps = extract_cuda.launch_disparity_maps(total, subpixel, uniqueness, lr_max_diff)
     sgm_extract_fused.launches += 1
     return maps

@@ -21,7 +21,9 @@ Pallas kernel differs in one case (``sweep_pallas.py:356``: sentinel pad
 views add the ceiling to the plain mean when S > 8 is not a multiple of 6),
 which the port does not reproduce.
 
-:func:`plane_sweep_census` launches ``csrc/plane_sweep.cu`` on CUDA tensors;
+:func:`plane_sweep_census` launches ``csrc/plane_sweep.cu`` on CUDA tensors
+(a kernel specialised for patch 3, 5 and 7 and top-k up to 8, every array
+path's; a generic one for the rest);
 :func:`plane_sweep_census_plain` computes the same function in plain PyTorch
 (the CPU and the tests use it). Both return (H, W, D) volumes, the layout the
 SGM path scans read.
@@ -39,7 +41,7 @@ from stereovisionarray_tpu_torch.backend import resolve_backend
 
 __all__ = ["plane_sweep_census", "plane_sweep_census_plain"]
 
-MAX_TOPK = 200  # top-k slots live in shared memory: k * 256 threads * 4 bytes
+MAX_TOPK = 200  # k <= 8 in registers; above, slots in shared memory: k * 256 threads * 4 bytes
 PLAIN_PLANE_CHUNK = 4  # planes per step of the plain twin: bounds its (planes, S, H, W) stacks
 
 

@@ -423,3 +423,285 @@ def test_adaptive_p2_maps_do_not_wait_for_the_device(rng, dtype):
         want = torch.maximum(torch.tensor(96.0, device="cuda") / (1.0 + 0.5 * g),
                              torch.tensor(24.0, device="cuda"))
         _same(got, torch.round(want).to(dtype) if dtype == torch.int16 else want)
+
+
+# ---- K2/K3 redesigned: family walks into int16 buffers, no atomics ----------------------------
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+@pytest.mark.parametrize("D", [3, 31, 32, 33, 64, 129, 256])
+def test_sgm_paths_kernel_int16_totals_that_wrap(rng, D, num_paths):
+    """int16 costs large enough that the 8-path int32 sum passes 32767: the
+    int16 total is that sum wrapped, on the vector (D % 8 == 0) and scalar forms."""
+    h, w = 7, 19
+    vol = _cuda(rng.integers(3000, 9000, (h, w, D)).astype(np.int16))
+    image = _cuda(np.floor(rng.uniform(0, 256, (h, w))).astype(np.float32))
+    p2_y, p2_x = p2_maps((h, w), 384, torch.int16, vol.device, image, True, 96)
+    call = lambda b: sgm_aggregate_paths(vol, p2_y, p2_x, 32, num_paths, b)  # noqa: E731
+    got = call("cuda")
+    _same(got, call("torch"))
+    assert got.dtype == torch.int16
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+@pytest.mark.parametrize("h,w,D", [(1, 40, 64), (33, 1, 64), (1, 1, 8), (2, 300, 16),
+                                   (300, 2, 24), (37, 29, 256)])
+def test_sgm_paths_kernel_thin_and_deep(rng, h, w, D, num_paths):
+    """Lines of length 1 and 2, lines of 300 steps, one pixel, D=256."""
+    vol = _cuda(rng.integers(0, 71, (h, w, D)).astype(np.int8))
+    image = _cuda(np.floor(rng.uniform(0, 256, (h, w))).astype(np.float32))
+    p2_y, p2_x = p2_maps((h, w), 96, torch.int16, vol.device, image, True, 24)
+    call = lambda b: sgm_aggregate_paths(vol, p2_y, p2_x, 8, num_paths, b)  # noqa: E731
+    _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("dtype,offset", [("int8", 1), ("int8", 8), ("int8", 3), ("int16", 1),
+                                          ("int16", 4)])
+def test_sgm_paths_kernel_misaligned_views(rng, dtype, offset):
+    """Cost volumes and P2 maps that are views `offset` elements into their
+    storage: the vector form needs aligned buffers, the scalar form takes any."""
+    h, w, D = 9, 23, 64
+    n = h * w * D
+    storage = _cuda(rng.integers(0, 71, n + offset).astype(dtype))
+    vol = storage[offset:].view(h, w, D)
+    image = _cuda(np.floor(rng.uniform(0, 256, (h, w))).astype(np.float32))
+    p2_y, p2_x = p2_maps((h, w), 96, torch.int16, vol.device, image, True, 24)
+    p2s = _cuda(np.zeros(h * w + 1, np.int16))
+    p2s[1:] = p2_y.reshape(-1)
+    p2_odd = p2s[1:].view(h, w)  # 2 bytes past a 4-byte boundary
+    for py, px in ((p2_y, p2_x), (p2_odd, p2_x), (p2_y, p2_odd)):
+        call = lambda b: sgm_aggregate_paths(vol, py, px, 8, 8, b)  # noqa: E731
+        _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_k10_k12_integer_routes_on_the_new_scans(rng, num_paths):
+    h, w, D = 23, 41, 64
+    q = _cuda(rng.integers(2000, 6000, (h, w, D)).astype(np.int16))
+    image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
+    _same(sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "cuda"),
+          sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "torch"))
+    qy, qx = p2_maps((h, w), 128, torch.int16, q.device, image, True, 32)
+    q8 = _cuda(rng.integers(0, 71, (h, w, D)).astype(np.int8))
+    for vol in (q, q8):
+        _same(sgm_extract_fused(vol, qy, qx, 16, num_paths, True, 0.95, 1.5, "cuda"),
+              sgm_extract_fused(vol, qy, qx, 16, num_paths, True, 0.95, 1.5, "torch"))
+
+
+def test_integer_scans_launch_no_zero_fill_and_no_narrowing(rng):
+    """The wrapper's own work around the kernel: two allocations (the int16
+    total and the partials) and one entry point; no zero-fill, no copy."""
+    h, w, D = 20, 30, 64
+    vol = _cuda(rng.integers(0, 71, (h, w, D)).astype(np.int8))
+    p2 = _cuda(np.full((h, w), 96, np.int16))
+    sgm_aggregate_paths(vol, p2, p2, 8, 8)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        total = sgm_aggregate_paths(vol, p2, p2, 8, 8)
+    ops = {e.name for e in prof.events()}
+    assert total.dtype == torch.int16
+    assert not ops & {"aten::zeros", "aten::zero_", "aten::fill_", "aten::to", "aten::_to_copy",
+                      "aten::copy_"}, ops
+
+
+# ---- K8 redesigned: the specialised kernel (patch 3, 5, 7; top-k <= 8) and the generic one ----
+
+def _sweep_inputs(rng, S, h, w, D, spread=12.0):
+    ref = _cuda(rng.uniform(0, 255, (h, w)).astype(np.float32))
+    src = _cuda(rng.uniform(0, 255, (S, h, w)).astype(np.float32))
+    sh = rng.uniform(-spread, spread, (D, S, 2)).astype(np.float32)
+    sh[1::4] = np.round(sh[1::4])
+    return ref, src, _cuda(sh)
+
+
+@pytest.mark.parametrize("valid_mean,topk", [(False, None), (True, None), (False, 2)])
+@pytest.mark.parametrize("patch", [3, 5, 7, 9, 17])
+def test_plane_sweep_kernel_every_patch_route(rng, patch, valid_mean, topk):
+    """Patch 3, 5 and 7 run the specialised kernel, 9 and 17 the generic one."""
+    ref, src, shifts = _sweep_inputs(rng, 4, 29, 47, 16)
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, valid_mean, topk, b)  # noqa: E731
+    _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("topk", [1, 6, 8, 9, 23])
+def test_plane_sweep_kernel_topk_in_registers_and_in_shared_memory(rng, topk):
+    """k <= 8 keeps its slots in registers, 9 <= k in shared memory."""
+    ref, src, shifts = _sweep_inputs(rng, 24, 21, 37, 12, spread=20.0)
+    call = lambda b: plane_sweep_census(ref, src, shifts, 5, False, topk, b)  # noqa: E731
+    _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("h,w,D", [(17, 29, 8), (45, 61, 13), (16, 28, 9), (33, 100, 17),
+                                   (1, 5, 3), (90, 3, 8)])
+def test_plane_sweep_kernel_ragged_tiles_and_wide_shifts(rng, h, w, D):
+    """Shapes that are not multiples of the tile (28 x 16 pixels at patch 5),
+    planes that are not multiples of the chunk of 8, and shifts that move by
+    more than a tile from plane to plane within one chunk."""
+    ref, src, shifts = _sweep_inputs(rng, 4, h, w, D, spread=70.0)
+    for patch in (3, 5, 7):
+        call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, None, b)  # noqa: E731
+        _same(call("cuda"), call("torch"))
+
+
+# ---- host-device waits: each timed path enqueues without waiting for the card ----------------
+
+def _queued_behind_a_spin(fn):
+    """fn() twice to warm up (kernels, pinned staging buffers), then again
+    while a ~0.5 s spin runs on the card: True if it returned before the
+    spin ended (it never waited)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)
+    spinning = torch.cuda.Event()
+    spinning.record()
+    out = fn()
+    returned_first = not spinning.query()
+    torch.cuda.synchronize()
+    return returned_first, out
+
+
+def _array_scene(h=45, w=60, planes=32):
+    from stereovisionarray_tpu_torch.config import EngineConfig
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
+
+    cams = reference_rig(rows=5, cols=5, spacing=0.05, resolution=(h, w))
+    images, _ = render_camera_array(cams, (h, w))
+    cfg = EngineConfig().override(**{"camera.rows": 5, "camera.cols": 5,
+                                     "plane_sweep.num_planes": planes,
+                                     "plane_sweep.topology": "CROSS"})
+    return cams, _cuda(images), cfg
+
+
+def test_resize_linear_does_not_wait(rng):
+    from stereovisionarray_tpu_torch.models.cascade import _linear_resize_weights, resize_linear
+
+    x = _cuda(rng.uniform(0, 60, (34, 48)).astype(np.float32))
+    waited_not, got = _queued_behind_a_spin(lambda: resize_linear(x, (136, 192)))
+    assert waited_not
+    # the same products with the weights copied the blocking way
+    wh, ww = (torch.from_numpy(_linear_resize_weights(m, n)).cuda()
+              for m, n in ((34, 136), (48, 192)))
+    _same(got, (wh.T @ x) @ ww)
+
+
+@pytest.mark.parametrize("fn", ["disparity_to_depth", "depth_to_disparity"])
+def test_guarded_inverse_does_not_wait(rng, fn):
+    from stereovisionarray_tpu_torch.models import two_view
+
+    x = _cuda(rng.uniform(-1, 64, (40, 50)).astype(np.float32))
+    conv = getattr(two_view, fn)
+    waited_not, got = _queued_behind_a_spin(lambda: conv(x, 0.12, 700.0))
+    assert waited_not
+    _same(got, conv(x.cpu(), 0.12, 700.0).cuda())
+
+
+def test_plane_sweep_volume_does_not_wait(rng):
+    """The plane depths and the shift table reach the card without a wait."""
+    from stereovisionarray_tpu_torch.models.array_pipeline import _shift_warp_pad
+    from stereovisionarray_tpu_torch.models.plane_sweep import plane_sweep_volume
+
+    cams, images, cfg = _array_scene()
+    src = (7, 11, 13, 17)
+    pad = _shift_warp_pad(cams, 12, src, cfg)
+    run = lambda: plane_sweep_volume(images, cams, 12, src, cfg.plane_sweep, shift_pad=pad)  # noqa: E731
+    waited_not, got = _queued_behind_a_spin(run)
+    assert waited_not
+    _same(got, plane_sweep_volume(images, cams, 12, src, cfg.plane_sweep, shift_pad=pad,
+                                  backend="torch"))
+
+
+def _sites_do_not_wait(monkeypatch, module):
+    """Wrap `module`'s host_to_device: each call starts a fresh spin on the
+    card and must return before it ends (the copy is enqueued, not waited
+    for). Returns the list of per-call results."""
+    real, results = module.host_to_device, []
+
+    def spy(a, device):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 28)
+        spinning = torch.cuda.Event()
+        spinning.record()
+        out = real(a, device)
+        results.append(not spinning.query())
+        return out
+
+    monkeypatch.setattr(module, "host_to_device", spy)
+    return results
+
+
+@pytest.mark.parametrize("mode", ["smooth", "band"])
+def test_two_view_cascade_tables_do_not_wait(rng, monkeypatch, mode):
+    """The resize weight matrices of the two-view cascade reach the card
+    without waiting for it, and the cascade equals its plain route."""
+    from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
+    from stereovisionarray_tpu_torch.models import cascade, cascade_two_view_disparity
+
+    img = np.floor(rng.uniform(0, 256, (48, 168))).astype(np.float32)
+    left, right = _cuda(img[:, :128]), _cuda(img[:, 40:])
+    cc, sc = CostConfig(num_disparities=64, dtype="int8"), SGMConfig(num_paths=8)
+    run = lambda b="auto": cascade_two_view_disparity(left, right, cc, sc, 4, 16, 8, backend=b,  # noqa: E731
+                                                      mode=mode)
+    run()  # warm: pinned staging buffers, kernels
+    results = _sites_do_not_wait(monkeypatch, cascade)
+    cascade._resize_weights_on.cache_clear()  # the weights reach the card again, under the spy
+    got = run()
+    assert results and all(results), results
+    want = run("torch")
+    for field in ("disparity", "valid", "cost", "confidence"):
+        _same(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.parametrize("mode", ["smooth", "band"])
+def test_array_cascade_tables_do_not_wait(rng, monkeypatch, mode):
+    """The plane depths, shift tables, a / c and band tables of the array
+    cascade (coarse and fine sweeps, pre-warp, decode) reach the card without
+    waiting for it, and the cascade equals its plain route."""
+    from stereovisionarray_tpu_torch.models import cascade_sweep, plane_sweep
+    from stereovisionarray_tpu_torch.models.array_pipeline import (
+        _shift_warp_pad,
+        reference_and_sources,
+    )
+
+    cams, images, cfg = _array_scene(planes=64)
+    ps = cfg.plane_sweep
+    ref, src = reference_and_sources(cfg, images.shape[0])
+    pad = _shift_warp_pad(cams, ref, src, cfg)
+    offsets, _ = cascade_sweep.cascade_static_params(cams, ref, src, ps, 24)
+    run = lambda b="auto": cascade_sweep.cascade_plane_sweep_depth(  # noqa: E731
+        images, cams, ref, src, ps, cfg.sgm, backend=b, shift_pad=pad, fine_planes=24,
+        band_offsets=offsets, mode=mode)
+    run()
+    results = _sites_do_not_wait(monkeypatch, cascade_sweep)
+    results_sweep = _sites_do_not_wait(monkeypatch, plane_sweep)
+    got = run()
+    assert results and all(results), results
+    assert results_sweep and all(results_sweep), results_sweep
+    want = run("torch")
+    for field in ("depth", "plane", "cost", "valid", "num_views", "confidence"):
+        _same(getattr(got, field), getattr(want, field))
+
+
+def test_host_tables_are_copied_once(rng):
+    """A table the timed paths hand over again (same contents) is the copy
+    already on the card; new contents are copied, values unchanged."""
+    from stereovisionarray_tpu_torch.backend import host_to_device
+
+    a = rng.uniform(-50, 50, (128, 4, 2)).astype(np.float32)
+    first = host_to_device(a, "cuda:0")
+    assert host_to_device(a.copy(), torch.device("cuda", 0)) is first
+    assert host_to_device(torch.from_numpy(a), first.device) is first
+    b = a + 1.0
+    other = host_to_device(b, first.device)
+    assert other is not first
+    _same(other, torch.from_numpy(b).cuda())
+    _same(first, torch.from_numpy(a).cuda())
+
+
+@pytest.mark.parametrize("patch", [5, 17])
+def test_plane_sweep_kernel_topk_near_its_cap(rng, patch):
+    """Top-200 of 201 sources on the generic kernel: with patch 5 the chunk's
+    results fit beside the 200 slots in shared memory, with patch 17 they do
+    not and each plane's result goes straight out."""
+    ref, src, shifts = _sweep_inputs(rng, 201, 9, 12, 10, spread=6.0)
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, 200, b)  # noqa: E731
+    _same(call("cuda"), call("torch"))
