@@ -96,6 +96,16 @@ The redesign of K4 and K6 (a tile of the row staged in shared memory) adds:
     fails on the generic form);
  6. K4 at D=256 with LR and at the array's shape, timed beside its plain
     version and bound ("at_shapes" in K4's row of the kernels line).
+The redesign of K7 (the float sum's vertical groups in row strips kept in
+L2) adds:
+ 3d. K7's strip route at every K7_STRIP_ROWS shape (both parity shapes in
+    every order, the array's ZNCC volume in wdh, an image narrower than its
+    strip height), 4 and 8 paths, and its generic form on a sweep subset and
+    under sweep_pair, each held to its plain version and to its route (the
+    wrapper's two counts);
+ 4d. the float paths must not run the generic form; a sweep subset runs it
+    as an entry point ("K7 generic");
+ 6d. the strip route at the array's ZNCC shape ("at_shapes" in its row).
 The line before the last lists every kernel with its launches, parity error,
 wrapper time, device time, plain time, bound (the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
@@ -199,6 +209,16 @@ EXTRACT_ROWS = (
     ("array_no_sgm", "K6", (270, 360, 128), "int8", False),
     ("array_zncc", "K6", (270, 360, 128), "float32", False),
     ("float32_d256_lr", "K6", (540, 768, 256), "float32", True),  # no path: the generic form
+)
+# K7's strip route at the float paths' shapes and the parity shapes, with the
+# orders held there: the two-view bench shape and the odd parity shape in
+# every order, the array's ZNCC volume in its wdh order, and one image
+# narrower than its strip height (S = 32)
+K7_STRIP_ROWS = (
+    ((540, 768, 64), ("k7", "wdh", "k10", "k12")),
+    ((541, 766, 48), ("k7", "wdh", "k10", "k12")),
+    ((270, 360, 128), ("wdh",)),
+    ((75, 20, 64), ("k7", "k12")),
 )
 
 
@@ -395,12 +415,13 @@ def main() -> None:
     from stereovisionarray_tpu_torch.ops.hatsample import hat_sample, hat_sample_2d
     from stereovisionarray_tpu_torch.models.plane_sweep import plane_sweep_depth
     from stereovisionarray_tpu_torch.ops.extract_cuda import _tile_plan, extract_disparity_maps
-    from stereovisionarray_tpu_torch.ops.sgm import ORDERS
+    from stereovisionarray_tpu_torch.ops.sgm import ALL_SWEEPS, ORDERS
     from stereovisionarray_tpu_torch.ops.sgm_cuda import (
         sgm_aggregate_float,
         sgm_aggregate_hwd,
         sgm_extract_fused,
         sweep_pair,
+        _strip_plan,
     )
 
     CostConfig, SGMConfig = config.CostConfig, config.SGMConfig
@@ -667,7 +688,12 @@ def main() -> None:
         {"name": "K6 extract_volume", "fn": extract_disparity_maps,
          "source": src_csrc + "extract.cu",
          "replaces": "stereovisionarray_tpu/ops/extract_pallas.py:218"},
-        {"name": "K7 sgm_float", "fn": sgm_aggregate_float, "source": src_csrc + "sgm_paths.cu",
+        # K7's two routes: the strip route every full-sweep call takes, and
+        # the generic form (sweep subsets, D % 8 != 0, unaligned costs)
+        {"name": "K7 strips", "fn": sgm_aggregate_float, "source": src_csrc + "sgm_paths.cu",
+         "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:430"},
+        {"name": "K7 generic", "fn": sgm_aggregate_float, "counter": "generic_launches",
+         "source": src_csrc + "sgm_paths.cu",
          "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:430"},
         {"name": "K10 sgm_aggregate_hwd", "fn": sgm_aggregate_hwd,
          "source": src_csrc + "sgm_paths.cu",
@@ -678,7 +704,7 @@ def main() -> None:
          "source": src_csrc + "sgm_paths.cu",
          "replaces": "stereovisionarray_tpu/ops/sgm_pallas.py:599"},
     ]
-    k6, k7, k10, k11, k12 = float_kernels
+    k6, k7, k7g, k10, k11, k12 = float_kernels
     for k in float_kernels:  # on none of the integer paths
         k.update(max_abs_err=0.0, launches=0, array_launches=0, cascade_launches=0)
     float_sgm = SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True, uniqueness=0.95,
@@ -691,6 +717,17 @@ def main() -> None:
         vol = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, "float32")
         p2_y, p2_x = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
         return left, right, vol, p2_y, p2_x
+
+    def k7_route(call, route):
+        """(kernel output, plain output) of a K7 call that must take `route`:
+        "strips" (``launches``) or "generic" (``generic_launches``)."""
+        before = (sgm_aggregate_float.launches, sgm_aggregate_float.generic_launches)
+        got = call("cuda")
+        ran = (sgm_aggregate_float.launches - before[0],
+               sgm_aggregate_float.generic_launches - before[1])
+        if ran != ((1, 0) if route == "strips" else (0, 1)):
+            fail(f"a K7 call meant for the {route} route counted (strips, generic) = {ran}")
+        return got, call("torch")
 
     def parity(k, got, want, **case):
         torch.cuda.synchronize()
@@ -709,13 +746,16 @@ def main() -> None:
                                                    "float32", b)
         parity(kernels[0], k1_call("cuda"), k1_call("torch"), shape=shape, dtype="float32")
         for num_paths in (4, 8):
-            for order in ORDERS:
-                call = lambda b: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths,  # noqa: E731
-                                                     order=order, backend=b)
-                parity(k7, call("cuda"), call("torch"), shape=shape, num_paths=num_paths,
-                       order=order)
             call = lambda b: sweep_pair(vol, p2_y, 8.0, num_paths == 8, b)  # noqa: E731
-            parity(k11, call("cuda"), call("torch"), shape=shape, num_paths=num_paths)
+            got, want = call("cuda"), call("torch")
+            parity(k11, got, want, shape=shape, num_paths=num_paths)
+            parity(k7g, got, want, shape=shape, num_paths=num_paths, call="sweep_pair")
+            # a sweep subset: the generic form
+            sweeps = ("down", "up", "lr") if D == 64 else ("up", "rl")
+            call = lambda b: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths,  # noqa: E731
+                                                 sweeps, backend=b)
+            parity(k7g, *k7_route(call, "generic"), shape=shape, num_paths=num_paths,
+                   sweeps=list(sweeps))
         total = sgm_aggregate_float(vol, p2_y, p2_x, 8.0)
         for name, v in (("float32_total", total),
                         ("int8_costs", fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,
@@ -731,6 +771,21 @@ def main() -> None:
                                               right=right)
                 parity(k5f, call("cuda"), call("torch"), shape=shape, volume=name,
                        uniqueness=0.95, lr_max_diff=1.5, right_map=right)
+
+    # K7's strip route at every K7_STRIP_ROWS shape, in each order given there,
+    # 4 and 8 paths; the plan must give a strip height at each
+    for (h, w, D), orders in K7_STRIP_ROWS:
+        strip_rows = _strip_plan(h, w, D, 8, ALL_SWEEPS, True)
+        if strip_rows is None:
+            fail(f"K7's strip plan refuses {h}x{w}x{D}")
+        _, _, vol, p2_y, p2_x = float_inputs(h, w, D, seed=h + w + D)
+        for num_paths in (4, 8):
+            for order in orders:
+                call = lambda b: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths,  # noqa: E731
+                                                     order=order, backend=b)
+                parity(k7, *k7_route(call, "strips"), shape=[h, w, D], num_paths=num_paths,
+                       order=order, strip_rows=strip_rows)
+        del vol
 
     # ---- 3e. the extraction at every shape a path gives it -------------------
     # K4 with and without the right map, K6; the tiled form wherever its plan
@@ -946,6 +1001,8 @@ def main() -> None:
             fail(f"the float two-view path ({name}) never launched {missing}")
         if entries.get("svt_extract_maps", 0) != launches[k6["name"]] or "svt_lr_gather" in entries:
             fail(f"K6 with LR is not one launch on the float two-view path: {entries}")
+        if launches[k7g["name"]] or "svt_sgm_paths_f32" in entries:
+            fail(f"the float two-view path ({name}) ran K7's generic form: {entries}")
         plain = two_view_disparity(*pair, cc, sc, backend="torch")
         errs = {f: max_err(torch, getattr(out, f), getattr(plain, f))
                 for f in ("disparity", "valid", "cost", "confidence")}
@@ -978,6 +1035,8 @@ def main() -> None:
         missing = [n for n in needed if launches[n] == 0]
         if missing:
             fail(f"the {name} path never launched {missing}")
+        if launches[k7g["name"]] or "svt_sgm_paths_f32" in entries:
+            fail(f"the {name} path ran K7's generic form: {entries}")
         plain = run("torch")
         errs = {f: max_err(torch, getattr(out, f), getattr(plain, f)) for f in fields}
         if name == "array_zncc":
@@ -996,12 +1055,15 @@ def main() -> None:
     fl, fr, fvol, fp2_y, fp2_x = float_inputs(*BENCH_SHAPE, seed=0)
     fmaps = extract_maps(sgm_aggregate_float(fvol, fp2_y, fp2_x, 8.0), True, 0.95)
     api_runs = {
+        # the generic form through the public call of a sweep subset
+        k7g["name"]: lambda b: sgm_aggregate_float(fvol, fp2_y, fp2_x, 8.0, 8,
+                                                   ("down", "up", "lr"), backend=b),
         k10["name"]: lambda b: sgm_aggregate_hwd(fvol, 8.0, 96.0, 8, fl, True, 24.0, b),
         k11["name"]: lambda b: sweep_pair(fvol, fp2_y, 8.0, True, b),
         k12["name"]: lambda b: sgm_extract_fused(fvol, fp2_y, fp2_x, 8.0, 8, True, 0.95, 1.5, b),
         k5["name"]: lambda b: lr_gather(fmaps.disparity, fmaps.disparity_right, BENCH_SHAPE[2], b),
     }
-    api_kernels = {k["name"]: k for k in (k10, k11, k12, k5)}
+    api_kernels = {k["name"]: k for k in (k7g, k10, k11, k12, k5)}
     for name, run in api_runs.items():
         out, launches, entries = counted(lambda: run("auto"))
         add_float_launches(launches)
@@ -1261,6 +1323,22 @@ def main() -> None:
         emit({"phase": "timing", "kernel": k["name"], "shape": [h, w, D], "dtype": "float32",
               "iters": TIMED_FRAMES, "ms": k["ms"], "device_ms": k["device_ms"],
               "plain_iters": PLAIN_FRAMES, "plain_ms": k["plain_ms"], **tag})
+    # K7's strip route at the array's ZNCC shape, in its wdh order; bound as
+    # K7's at the bench shape
+    ah, aw, ad = 270, 360, 128
+    _, _, avol, ap2_y, ap2_x = float_inputs(ah, aw, ad, seed=3)
+    call = lambda b: sgm_aggregate_float(avol, ap2_y, ap2_x, 8.0, 8, order="wdh",  # noqa: E731
+                                         backend=b)
+    t_bytes = (ah * aw * ad * 8 + 2 * ah * aw * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = ah * aw * ad * (8 * 8 + 7) / F32_OPS_PER_S * 1e3
+    k7["at_shapes"] = {"array_zncc": {
+        "shape": [ah, aw, ad], "order": "wdh",
+        "ms": cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
+        "device_ms": device_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
+        "plain_ms": cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}}
+    emit({"phase": "timing", "kernel": k7["name"], **k7["at_shapes"]["array_zncc"], **tag})
+    del avol
     # K6 without the LR check (raw WTA, the wdh route): the right view is skipped
     call = lambda b: extract_disparity_maps(ftotal, True, 0.0, 0.0, b)  # noqa: E731
     emit({"phase": "timing", "kernel": k6["name"], "variant": "no_lr", "shape": [h, w, D],
@@ -1312,6 +1390,8 @@ def main() -> None:
         "K9 hat_sample_2d": (int(np.prod(prewarp_shape)) * 16, int(np.prod(prewarp_shape)) * 24),
         k6["name"]: (HWD * 4 + HW * 13, HWD * 6 + HW * 4),
         k7["name"]: (HWD * 8 + 2 * HW * 4, 8 * HWD * 8 + 7 * HWD),
+        # the sweep subset timed: 7 paths, 6 adds
+        k7g["name"]: (HWD * 8 + 2 * HW * 4, 7 * HWD * 8 + 6 * HWD),
         k10["name"]: (HWD * 8 + HW * 4, 8 * HWD * 8 + 7 * HWD),
         k11["name"]: (HWD * 12 + HW * 4, 6 * HWD * 8 + 4 * HWD),
         k12["name"]: (HWD * 4 + 2 * HW * 4 + HW * 13, 8 * HWD * 8 + 13 * HWD),

@@ -36,15 +36,18 @@ computes the same function (``torch.gather``, ``grid_sample``).
 
 With ``--kernels``, every kernel's device time at the main paths' shapes
 (the same spin), on inputs made from a seed: K2/K3 at 540x768x64 int8 and
-int16, 540x768x256 and 270x360x128, K8 at CROSS and to_center, K1, K7, K9
-beside them, and the extraction K4 / K6 at every shape, volume type and LR
-setting a path gives it (``chip_smoke.EXTRACT_ROWS``; each line names the
-kernel form that ran, where the checkout's ``ops/extract_cuda`` has a tile
-plan). With ``--e2e``, the end-to-end times of the paths,
-CUDA events over warm frames as ``chip_smoke.py`` times them: two-view at
-540x768x64 (int8, int16, float32 with uniqueness and LR), the flat two-view
-at 540x768x256 and its cascade, the array (5x5 of 270x360, 128 planes) at
-CROSS, to_center and its cascade.
+int16, 540x768x256 and 270x360x128, K8 at CROSS and to_center, K1, K9
+beside them, K7 at 540x768x64 (k7 order) and 270x360x128 (wdh), whole and
+its generic form's walks and combine apart (and each kernel of the whole
+call from ``torch.profiler``), K10-K12 at 540x768x64, and the extraction
+K4 / K6 at every shape, volume type and LR setting a path gives it
+(``chip_smoke.EXTRACT_ROWS``; each line names the kernel form that ran,
+where the checkout's ``ops/extract_cuda`` has a tile plan). With ``--e2e``,
+the end-to-end times of the paths, CUDA events over warm frames as
+``chip_smoke.py`` times them: two-view at 540x768x64 (int8, int16, float32
+with uniqueness and LR), the flat two-view at 540x768x256 and its cascade,
+the array (5x5 of 270x360, 128 planes) at CROSS, to_center, CROSS with ZNCC
+costs and its cascade.
 
 ``--package-root DIR`` imports the package from another checkout (an
 unpacked older commit), so that two versions compare within one call, in
@@ -295,6 +298,7 @@ def kernel_device_times(torch, emit, iters: int = 20) -> None:
     fy, fx = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
     timed("K7 sgm_float", lambda: sgm_aggregate_float(fvol, fy, fx, 8.0, 8), shape=[h, w, D])
     del fvol
+    k7_device_times(torch, timed, emit, iters)
 
     # K4 / K6 at every shape, volume type and LR setting a path gives them
     from stereovisionarray_tpu_torch.ops import extract_cuda
@@ -338,11 +342,73 @@ def kernel_device_times(torch, emit, iters: int = 20) -> None:
     timed("K9 hat_sample_2d", lambda: hat_sample_2d(v3, t3, t3, -38, 38), shape=[4, AH, AW])
 
 
+def profiled_kernel_ms(torch, fn, iters: int) -> dict:
+    """Device ms a call of each CUDA kernel that fn() launches, from
+    ``torch.profiler`` over `iters` warm calls: {kernel name: ms}, empty if
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            out[e.key] = us / 1e3 / iters
+    return out
+
+
+def k7_device_times(torch, timed, emit, iters: int) -> None:
+    """K7 at the float paths' shapes: 540x768x64 in the k7 order (two-view
+    float32) and 270x360x128 in the wdh order (the array's ZNCC path), 8
+    paths, the whole call and the generic form's two launches apart (the
+    walks into 8 partials, then the ordered combine), each behind a GPU spin,
+    and every kernel of the whole call from the profiler; then K10, K11 and
+    K12 at 540x768x64."""
+    from stereovisionarray_tpu_torch.ops import sgm_cuda
+    from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
+    from stereovisionarray_tpu_torch.ops.sgm import ALL_SWEEPS, p2_maps, sweep_paths
+
+    ids = [p for s in ALL_SWEEPS for p in sweep_paths(8)[s]]
+    for (hh, ww, dd), order in ((chip_smoke.BENCH_SHAPE, "k7"), ((270, 360, 128), "wdh")):
+        lo, ro = chip_smoke.stereo_pair(torch, hh, ww, seed=dd)
+        vol = fused_cost_volume_cuda(lo, ro, dd, (7, 9), 0.25, 32.0, "float32")
+        py, px = p2_maps((hh, ww), 96.0, torch.float32, lo.device, lo, True, 24.0)
+        info = dict(shape=[hh, ww, dd], order=order, num_paths=8)
+        call = lambda: sgm_cuda.sgm_aggregate_float(vol, py, px, 8.0, 8, order=order)  # noqa: E731
+        timed("K7 sgm_float", call, **info)
+        emit({"kernel": "K7 sgm_float", **info,
+              "profiled_ms": profiled_kernel_ms(torch, call, iters)})
+        partial, mask = sgm_cuda._float_partials(vol, py, px, 8.0, ids)
+        timed("K7 generic walks", lambda: sgm_cuda._float_partials(vol, py, px, 8.0, ids), **info)
+        timed("K7 generic combine", lambda: sgm_cuda._combine(partial, mask, 8, ALL_SWEEPS, order),
+              **info)
+        del vol, partial
+        torch.cuda.empty_cache()
+    h, w, D = chip_smoke.BENCH_SHAPE
+    left, right = chip_smoke.stereo_pair(torch, h, w, seed=0)
+    vol = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, "float32")
+    py, px = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
+    timed("K10 sgm_aggregate_hwd",
+          lambda: sgm_cuda.sgm_aggregate_hwd(vol, 8.0, 96.0, 8, left, True, 24.0), shape=[h, w, D])
+    timed("K11 sweep_pair", lambda: sgm_cuda.sweep_pair(vol, py, 8.0, True), shape=[h, w, D])
+    timed("K12 sgm_extract_fused",
+          lambda: sgm_cuda.sgm_extract_fused(vol, py, px, 8.0, 8, True, 0.95, 1.5), shape=[h, w, D])
+    del vol
+    torch.cuda.empty_cache()
+
+
 def e2e(torch, emit) -> None:
     """ms per frame (or frame-set) of the paths, at chip_smoke.py's
     configurations: two-view int8, int16 and float32 at 540x768x64, the flat
-    two-view at 540x768x256 and its cascade, the array at CROSS, to_center
-    and its cascade."""
+    two-view at 540x768x256 and its cascade, the array at CROSS, to_center,
+    CROSS with ZNCC costs (float K7 in the wdh order) and its cascade."""
     from stereovisionarray_tpu_torch import config
     from stereovisionarray_tpu_torch.models import array_depth_pipeline, two_view_disparity
 
@@ -372,6 +438,9 @@ def e2e(torch, emit) -> None:
                 **{"plane_sweep.topology": "CROSS"})), list(chip_smoke.ARRAY_SHAPE)),
             "array_to_center": (lambda: array_depth_pipeline(images, cams, array_cfg),
                                 list(chip_smoke.ARRAY_SHAPE)),
+            "array_zncc": (lambda: array_depth_pipeline(images, cams, array_cfg.override(
+                **{"plane_sweep.topology": "CROSS", "plane_sweep.cost": "zncc"})),
+                list(chip_smoke.ARRAY_SHAPE)),
             "array_cascade": (lambda: array_depth_pipeline(images, cams, casc_cfg),
                               list(chip_smoke.ARRAY_SHAPE))}
     for name, (run, shape) in runs.items():

@@ -55,6 +55,9 @@ _SIGNATURES = {
     "svt_sgm_paths_f32": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # partial, out, h, w, n_disp, path_mask, num_paths, sweep_mask, order, stream
     "svt_sgm_combine_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # cost, p2_y, p2_x, out, p2_buf, p3_buf, a_buf, ring, h, w, n_disp, p1,
+    # num_paths, order, strip_rows, stream
+    "svt_sgm_float_strips": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
     # total, total_bytes, h, w, n_disp, subpixel, uniqueness, lr_max_diff,
     # tile, stride_words, disp_l, cost, valid, second, disp_r, stream
     "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P),

@@ -1,7 +1,9 @@
 // K2/K3: the integer SGM path scans, 4 or 8 paths summed into the int16
 // total by one entry point (svt_sgm_paths).
-// K7 (float costs): the same scans in float32, each path into a partial of
-// its own, then an ordered combine (see "Float aggregation" below).
+// K7 (float costs): the same scans in float32, summed in each reference
+// route's order: the strip route over all four sweeps (see "K7's strip
+// route" below), else the generic form, each path into a partial of its own
+// then an ordered combine (see "Float aggregation" below).
 //
 // Replaces stereovisionarray_tpu/ops/sgm_pallas.py::_sweep_kernel_hdw_stacked
 // (via _sweep_hdw_stacked: the vertical path group, axis path + both
@@ -57,6 +59,8 @@
 
 #include <climits>
 #include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -504,10 +508,10 @@ cudaError_t launch_int(const void* cost, const int16_t* p2_y, const int16_t* p2_
 }
 
 // ---------------------------------------------------------------------------
-// Float aggregation (K7; replaces the float use of the sweep kernels through
+// Float aggregation (K7's generic form: sweep subsets, D % 8 != 0, unaligned
+// costs; replaces the float use of the sweep kernels through
 // stereovisionarray_tpu/ops/sgm_pallas.py::sgm_aggregate_pallas_sweeps /
-// sgm_aggregate_pallas_hdw, and serves the twins of sgm_aggregate_pallas,
-// _sweep_hdw_bidir and sgm_extract_fused_hdw/_wdh).
+// sgm_aggregate_pallas_hdw, and serves the twin of _sweep_hdw_bidir).
 //
 // Float sums are not associative, and every reference route sums the paths
 // in its own order, so the integer design (each pair of opposite paths
@@ -532,8 +536,7 @@ cudaError_t launch_int(const void* cost, const int16_t* p2_y, const int16_t* p2_
 // read back once, 2 * 8 * 106 MB at 540x768x64, about 0.5 ms of HBM time
 // against the 212 MB (0.06 ms) that reading the costs and writing the sum
 // need. Memory for the partials is P * H*W*D * 4 bytes (3.4 GB at
-// 540x768x256 with 8 paths); a fused design keeping the groups in registers
-// is later work.
+// 540x768x256 with 8 paths); the strip route below moves 11 H*W*D floats.
 
 template <int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -664,6 +667,491 @@ cudaError_t launch_f32(const float* cost, const float* p2_y, const float* p2_x, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K7's strip route (svt_sgm_float_strips): every full-sweep float sum where
+// D % 8 == 0 and the buffers are 16-byte aligned (ops/sgm_cuda._strip_plan).
+//
+// The generic form above moves 25U (U = H*W*D*4 bytes: 8 walks read the
+// costs and write a partial each, the combine reads the 8 back and writes
+// the total) and runs at HBM's rate (3.06 TB/s for the walks, 2.91 for the
+// combine at 540x768x64, PERF.md): only fewer bytes make it faster.
+// The reference kept its path intermediates in VMEM: the TPU walked a whole
+// row at a time with a stacked carry of the three same-direction paths
+// (sgm_pallas.py:466-471, _sweep_hdw_stacked) and accumulated the up sweep
+// into the down sweep's volume (:478-499). Here a row-serial sweep would
+// hand data between SMs on every row, so the vertical groups walk the image
+// in strips of S rows and keep their partials in L2:
+//  1. sgm_rows_f32_kernel: the left->right and right->left walks, a row a
+//     line, each into a buffer of its own (P2, P3): a chain of W steps.
+//  2. sgm_strips_f32_kernel, down: a cooperative persistent kernel. Phase k
+//     walks strip k of the down group (paths 0, 4, 5) into slot k % 2 of a
+//     ring of [2][3][S][W][D] floats (18 MiB at 540x768x64: it stays in
+//     L2), each segment carried from the strip before's slot or fresh, and
+//     its other warps sum strip k - 1, A = (P0 + P4) + P5, into HBM; one
+//     grid barrier a phase. The walk of strip k + 1 overwrites slot
+//     (k - 1) % 2 only after the barrier that ends the combine of k - 1.
+//  3. the same kernel, up: the up group (1, 6, 7) from the bottom strip up;
+//     its combine forms B = (P1 + P6) + P7 and the route's total from A,
+//     P2, P3 and, on the rows the reference fuses, the costs (P1 = C at
+//     y = H-1, and for k12 P0 = C at y = 0), exactly as
+//     sgm_combine_f32_kernel: each + adds the same two float32 operands.
+// Bytes: 2U + 2U, then 1U + 1U, then 4U + 1U: 11U of HBM traffic in all.
+// The ring is written and read in L2, and the three paths of a strip read
+// the same cost rows in the same phase, so the second and third reads hit L2.
+//
+// Walks: as the integer staged form, L lanes a line, V consecutive d a lane
+// (V = 4, one float4, up to D = 128; 8 above), costs and P2 staged
+// kStripStages steps ahead with cp.async, the next step's stage read before
+// this step's chain; the float recurrence of sgm_paths_f32_kernel, evaluated
+// in its order. What bounds it on the H100 (PERF.md, K7's phase timing): a
+// phase's walk takes ~0.28 us a step whatever its loads or its chain (a
+// warp's instruction latency: 16 steps of ~90 dependent instructions), so
+// 70 phases cost ~0.35 ms of walks beside ~0.12 ms of grid barriers, and
+// the up pass's combine (4U from HBM) runs beside its walks.
+
+constexpr int kRowWarps = 1;     // launch 1: a block a warp, spread over every SM
+constexpr int kStripWarps = 16;  // launches 2 and 3: 2 blocks an SM, a cheaper grid barrier
+constexpr int kStripStages = 8;
+constexpr long long kStripRingBytes = 24ll << 20;  // ops/sgm_cuda.STRIP_RING_BYTES
+constexpr int kMaxStripRows = 32;
+
+// ops/sgm_cuda._strip_plan's strip height at width w and n_disp
+int strip_rows_for(int w, int n_disp) {
+  int rows = kMaxStripRows;
+  while (rows > 1 && 2ll * 3 * rows * w * n_disp * 4 > kStripRingBytes) rows >>= 1;
+  return rows;
+}
+
+// Shared memory of a warp: kStripStages stages of V costs a lane and a P2
+// word a lane, then (strip walks) a lane's V floats of the carried L.
+template <int V>
+__host__ __device__ constexpr int stage_bytes() { return 32 * V * 4 + 32 * 4; }
+template <int V>
+__host__ __device__ constexpr int row_warp_bytes() { return kStripStages * stage_bytes<V>(); }
+template <int V>
+__host__ __device__ constexpr int strip_warp_bytes() {
+  return kStripStages * stage_bytes<V>() + 32 * V * 4;
+}
+
+template <int V>
+__device__ __forceinline__ void load_v(float (&v)[V], const unsigned char* p) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q)
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+template <int V>
+__device__ __forceinline__ void store_v_streaming(float* p, const float (&v)[V]) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q)
+    __stcs(reinterpret_cast<float4*>(p) + q,
+           make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+}
+// a lane's V values from global memory into shared memory (16-byte aligned)
+template <int V>
+__device__ __forceinline__ void cp_async_v(unsigned char* dst, const float* src) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) cp_async<16>(dst + 16 * q, src + 4 * q);
+}
+
+// One float step of a line's L lanes, uniform across the warp (shuffles):
+// cur = C + (min(prev, m + P2, min(lo, hi) + P1) - m), m = min_d' prev, in
+// sgm_paths_f32_kernel's order; lanes past D (has == false) add nothing.
+template <int L, int V>
+__device__ __forceinline__ void f32_step(float (&cur)[V], const float (&prev)[V], float p2,
+                                         float p1, bool has, int d0, int n_disp) {
+  float m = __int_as_float(0x7f800000);  // +inf
+  if (has) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) m = fminf(m, prev[k]);
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off, L));
+  float below = __shfl_up_sync(kFull, prev[V - 1], 1, L);  // d = d0 - 1
+  float above = __shfl_down_sync(kFull, prev[0], 1, L);    // d = d0 + V
+  if (d0 == 0) below = svt::kBigFloat;
+  if (d0 + V == n_disp) above = svt::kBigFloat;
+  const float jump = m + p2;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const float lo = k > 0 ? prev[k - 1] : below;
+    const float hi = k < V - 1 ? prev[k + 1] : above;
+    const float best = fminf(fminf(prev[k], jump), fminf(lo, hi) + p1);
+    cur[k] = cur[k] + (best - m);
+  }
+}
+
+// Launch 1, the horizontal walks: lines [0, H) walk rows left->right into
+// p2_buf, [H, 2H) right->left into p3_buf, W steps each; L lanes a line,
+// 32 / L lines a warp, a warp a block (spread over every SM). The next
+// step's stage is read before this step's chain, so that the reads overlap it.
+template <int L, int V>
+__global__ void __launch_bounds__(kRowWarps * 32)
+sgm_rows_f32_kernel(const float* __restrict__ cost, const float* __restrict__ p2_x,
+                    float* __restrict__ p2_buf, float* __restrict__ p3_buf, int h, int w,
+                    int n_disp, float p1) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int first_line = (blockIdx.x * kRowWarps + (threadIdx.x >> 5)) * (32 / L);
+  if (first_line >= 2 * h) return;  // whole warp: past the last line
+  const int line = first_line + lane / L;
+  const bool live = line < 2 * h;
+  const bool rl = line >= h;
+  const int row = live ? (rl ? line - h : line) : 0;
+  const long long step = rl ? -1 : 1;
+  const long long start = static_cast<long long>(row) * w + (rl ? w - 1 : 0);
+  const int d0 = (lane & (L - 1)) * V;
+  const bool has = live && d0 < n_disp;  // V divides D: all V values or none
+  unsigned char* ring = smem + (threadIdx.x >> 5) * row_warp_bytes<V>();
+  int staged = 0;  // steps whose copies were issued, one group a step
+  auto issue = [&]() {
+    if (staged < w) {
+      unsigned char* st = ring + (staged % kStripStages) * stage_bytes<V>();
+      const long long pix = start + staged * step;
+      if (has) cp_async_v<V>(st + lane * V * 4, cost + pix * n_disp + d0);
+      if (live) cp_async<4>(st + 32 * V * 4 + lane * 4, p2_x + pix);
+    }
+    ++staged;
+    cp_async_commit();
+  };
+  auto read = [&](int i, float (&c)[V], float& q) {  // step i's stage into registers
+    const unsigned char* st = ring + (i % kStripStages) * stage_bytes<V>();
+    load_v<V>(c, st + lane * V * 4);
+    q = *reinterpret_cast<const float*>(st + 32 * V * 4 + lane * 4);
+  };
+#pragma unroll
+  for (int i = 0; i < kStripStages; ++i) issue();
+  cp_async_wait<kStripStages - 1>();
+  float prev[V], cur[V], p2;
+  read(0, cur, p2);
+  issue();  // refill step 0's stage
+  float* out = (rl ? p3_buf : p2_buf) + start * n_disp + d0;
+  for (int i = 0; i < w; ++i) {
+    cp_async_wait<kStripStages - 1>();  // step i + 1's group has landed
+    float nxt[V], p2n;
+    read(i + 1, nxt, p2n);
+    issue();
+    if (i > 0) f32_step<L, V>(cur, prev, p2, p1, has, d0, n_disp);
+    if (has) store_v_streaming<V>(out, cur);
+    out += step * n_disp;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      prev[k] = cur[k];
+      cur[k] = nxt[k];
+    }
+    p2 = p2n;
+  }
+  cp_async_wait<0>();
+}
+
+struct StripArgs {
+  const float* cost;
+  const float* p2_y;
+  const float* p2_x;
+  float* p2_buf;  // left->right L (launch 1, read by the up pass)
+  float* p3_buf;  // right->left L
+  float* a_buf;   // the down group's sum (the down pass, read by the up pass)
+  float* out;     // the route's total (the up pass)
+  float* ring;    // [2][paths][S][W][D]
+  int h, w, n_disp, paths, order, up, strip_rows;
+  float p1;
+};
+
+// A segment walk of the strip route: 32 / L segments of the pass's group
+// of paths, one a line of L lanes. Path j of the group steps (dy, dx) with
+// dy = -1 on the up pass and dx = 0, +1, -1 for j = 0, 1, 2 (down 0, 4, 5;
+// up 1, 6, 7). Segment i < W starts at column i of the strip's first row in
+// the walking direction and is carried from the pixel one step back, in the
+// strip walked before, where that lies in the image; a diagonal's segment
+// W - 1 + j' (j' >= 1) enters from the side edge j' rows in, fresh (the
+// integer kernels' family_line, restricted to the strip).
+struct Segment {
+  long long pix, pix_step;  // the next step's pixel to stage, pixels a step
+  int y, x, j, len, steps, staged;
+  bool carried, has;
+};
+
+// Walk item `item` of strip `strip` (rows [y0, y0 + n)): this lane's segment.
+template <int L, int V>
+__device__ __forceinline__ Segment plan_segment(const StripArgs& a, int strip, int n, int item) {
+  const int lane = threadIdx.x & 31;
+  const int w = a.w;
+  const int diag_segs = w + n - 1;
+  int g = item * (32 / L) + lane / L;
+  Segment sg;
+  sg.j = 0;
+  if (g >= w) {
+    g -= w;
+    sg.j = 1 + g / diag_segs;
+    g -= (sg.j - 1) * diag_segs;
+  }
+  const int dy = a.up ? -1 : 1;
+  const int dx = sg.j == 1 ? 1 : (sg.j == 2 ? -1 : 0);
+  const int y0 = strip * a.strip_rows;
+  const int ys = a.up ? y0 + n - 1 : y0;
+  sg.y = ys;
+  sg.x = g;
+  sg.len = 0;
+  sg.carried = false;
+  if (sg.j < a.paths) {
+    if (g < w) {
+      sg.len = dx > 0 ? min(n, w - g) : (dx < 0 ? min(n, g + 1) : n);
+      const int py = sg.y - dy, px = sg.x - dx;
+      sg.carried = py >= 0 && py < a.h && px >= 0 && px < w;
+    } else {  // enters from the side edge, fresh
+      const int jj = g - w + 1;
+      sg.y = ys + dy * jj;
+      sg.x = dx > 0 ? 0 : w - 1;
+      sg.len = min(n - jj, w);
+    }
+  }
+  sg.steps = __reduce_max_sync(kFull, sg.len);
+  sg.has = sg.len > 0 && (lane & (L - 1)) * V < a.n_disp;
+  sg.pix_step = static_cast<long long>(dy) * w + dx;
+  sg.pix = static_cast<long long>(sg.y) * w + sg.x;
+  sg.staged = 0;
+  return sg;
+}
+
+// The next step's copies (costs, P2) into its stage: one group a step.
+template <int L, int V>
+__device__ __forceinline__ void stage_step(const StripArgs& a, Segment& sg,
+                                           unsigned char* warp_smem) {
+  const int lane = threadIdx.x & 31;
+  if (sg.staged < sg.len) {
+    unsigned char* st = warp_smem + (sg.staged % kStripStages) * stage_bytes<V>();
+    if (sg.has)
+      cp_async_v<V>(st + lane * V * 4, a.cost + sg.pix * a.n_disp + (lane & (L - 1)) * V);
+    cp_async<4>(st + 32 * V * 4 + lane * 4, a.p2_y + sg.pix);
+  }
+  sg.pix += sg.pix_step;
+  ++sg.staged;
+  cp_async_commit();
+}
+
+// The walk of one segment: the first kStripStages steps' copies and the
+// carry from the strip before's ring slot (L2), then the steps; each L goes
+// to this strip's slot at row y - y0. The next step's stage is read before
+// this step's chain.
+template <int L, int V>
+__device__ __forceinline__ void walk_segment(const StripArgs& a, int strip, Segment& sg,
+                                             unsigned char* warp_smem) {
+  if (sg.steps == 0) return;  // whole warp: past the last segment
+  const int lane = threadIdx.x & 31;
+  const int w = a.w, n_disp = a.n_disp, S = a.strip_rows;
+  const int d0 = (lane & (L - 1)) * V;
+  const int dy = a.up ? -1 : 1;
+  const int dx = sg.j == 1 ? 1 : (sg.j == 2 ? -1 : 0);
+  const long long plane = static_cast<long long>(w) * n_disp;  // floats a row
+  const long long path_floats = static_cast<long long>(S) * plane;
+  float* const ring = a.ring;
+  unsigned char* carry = warp_smem + kStripStages * stage_bytes<V>();
+  if (sg.carried && sg.has) {
+    const int py = sg.y - dy, px = sg.x - dx;
+    cp_async_v<V>(carry + lane * V * 4, ring + path_floats * (a.paths * ((py / S) & 1) + sg.j) +
+                                            static_cast<long long>(py % S) * plane +
+                                            static_cast<long long>(px) * n_disp + d0);
+  }
+#pragma unroll
+  for (int t = 0; t < kStripStages; ++t) stage_step<L, V>(a, sg, warp_smem);  // carry: group 0
+  cp_async_wait<kStripStages - 1>();  // step 0 and the carry have landed
+  float* out = ring + path_floats * (a.paths * (strip & 1) + sg.j) +
+               static_cast<long long>(sg.y - strip * S) * plane +
+               static_cast<long long>(sg.x) * n_disp + d0;
+  const long long out_step = dy * plane + dx * n_disp;
+  auto read = [&](int t, float (&c)[V], float& q) {  // step t's stage into registers
+    const unsigned char* st = warp_smem + (t % kStripStages) * stage_bytes<V>();
+    load_v<V>(c, st + lane * V * 4);
+    q = *reinterpret_cast<const float*>(st + 32 * V * 4 + lane * 4);
+  };
+  float prev[V], cur[V], p2;
+  read(0, cur, p2);
+#pragma unroll
+  for (int k = 0; k < V; ++k) prev[k] = cur[k];
+  if (sg.carried && sg.has) load_v<V>(prev, carry + lane * V * 4);
+  float first[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) first[k] = cur[k];
+  f32_step<L, V>(first, prev, p2, a.p1, sg.has, d0, n_disp);
+  stage_step<L, V>(a, sg, warp_smem);  // refill step 0's stage
+#pragma unroll
+  for (int k = 0; k < V; ++k) cur[k] = sg.carried ? first[k] : cur[k];  // fresh: L = C
+  for (int t = 0;;) {
+    if (sg.has && t < sg.len) store_v<V>(out, cur);
+    out += out_step;
+    if (++t == sg.steps) break;
+    cp_async_wait<kStripStages - 1>();  // step t's group has landed
+    float nxt[V];
+    read(t, nxt, p2);
+    stage_step<L, V>(a, sg, warp_smem);
+    f32_step<L, V>(nxt, cur, p2, a.p1, sg.has, d0, n_disp);
+#pragma unroll
+    for (int k = 0; k < V; ++k) cur[k] = nxt[k];
+  }
+  cp_async_wait<0>();
+}
+
+__device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// The route's total of one element from the group sums dn (down) and up,
+// the horizontal walks' L p2 and p3, and the cost c on the fused rows, as
+// sgm_combine_f32_kernel sums it.
+__device__ __forceinline__ float route_total(float dn, float up, float p2, float p3, float c,
+                                             int order, bool first, bool last) {
+  if (order == kOrderK12) {
+    const float horiz = p2 + p3;
+    const float acc = first ? __fmaf_rn(3.0f, c, horiz) : horiz + dn;
+    return last ? __fmaf_rn(3.0f, c, acc) : acc + up;
+  }
+  const float vert = last ? __fmaf_rn(3.0f, c, dn) : dn + up;
+  return order == kOrderWdh ? (vert + p2) + p3 : vert + (p2 + p3);
+}
+
+// The combine of strip `strip` (n rows) by thread `tid` of `nthreads`, four
+// elements a step: the group sum (axis + diag+1) + diag-1 from the ring; the
+// down pass writes it to A, the up pass the route's total.
+__device__ __forceinline__ void combine_strip(const StripArgs& a, int strip, int n, long long tid,
+                                              long long nthreads) {
+  const long long plane = static_cast<long long>(a.w) * a.n_disp;
+  const long long path_floats = static_cast<long long>(a.strip_rows) * plane;
+  const float* slot = a.ring + a.paths * path_floats * (strip & 1);
+  const long long first = static_cast<long long>(strip) * a.strip_rows * plane;  // element offset
+  const long long quads = n * plane / 4;
+  const bool fused = a.paths == 3 && a.order != kOrderK10;
+  for (long long q = tid; q < quads; q += nthreads) {
+    float4 g = ldcg4(slot + 4 * q);
+    if (a.paths == 3)
+      g = add4(add4(g, ldcg4(slot + path_floats + 4 * q)), ldcg4(slot + 2 * path_floats + 4 * q));
+    const long long e = first + 4 * q;
+    if (!a.up) {
+      __stcs(reinterpret_cast<float4*>(a.a_buf + e), g);
+      continue;
+    }
+    const int y = static_cast<int>(e / plane);
+    const bool first_row = fused && a.order == kOrderK12 && y == 0;
+    const bool last_row = fused && y == a.h - 1;
+    const float4 dn = __ldcs(reinterpret_cast<const float4*>(a.a_buf + e));
+    const float4 p2 = __ldcs(reinterpret_cast<const float4*>(a.p2_buf + e));
+    const float4 p3 = __ldcs(reinterpret_cast<const float4*>(a.p3_buf + e));
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (first_row || last_row) c = __ldg(reinterpret_cast<const float4*>(a.cost + e));
+    float4 t;
+    t.x = route_total(dn.x, g.x, p2.x, p3.x, c.x, a.order, first_row, last_row);
+    t.y = route_total(dn.y, g.y, p2.y, p3.y, c.y, a.order, first_row, last_row);
+    t.z = route_total(dn.z, g.z, p2.z, p3.z, c.z, a.order, first_row, last_row);
+    t.w = route_total(dn.w, g.w, p2.w, p3.w, c.w, a.order, first_row, last_row);
+    __stcs(reinterpret_cast<float4*>(a.out + e), t);
+  }
+}
+
+// Launches 2 and 3: phases k = 0 .. n_strips, each the walk of strip k (in
+// the pass's order) and the combine of strip k - 1, then a grid barrier.
+// Walk items go to warps spread over the blocks first (warp rank = warp in
+// block * blocks + block); the warps past the walkers combine, or all warps
+// combine after their walks when every warp walks.
+template <int L, int V>
+__global__ void __launch_bounds__(kStripWarps * 32)
+sgm_strips_f32_kernel(StripArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  unsigned char* warp_smem = smem + (threadIdx.x >> 5) * strip_warp_bytes<V>();
+  const int S = a.strip_rows;
+  const int n_strips = (a.h + S - 1) / S;
+  const int blocks = gridDim.x;
+  const int warps = blocks * kStripWarps;
+  const int rank = (threadIdx.x >> 5) * blocks + blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; k <= n_strips; ++k) {
+    int walkers = 0;
+    if (k < n_strips) {
+      const int strip = a.up ? n_strips - 1 - k : k;
+      const int n = min(S, a.h - strip * S);
+      walkers = (a.w + (a.paths == 3 ? 2 * (a.w + n - 1) : 0) + 32 / L - 1) / (32 / L);
+      for (int item = rank; item < walkers; item += warps) {
+        Segment sg = plan_segment<L, V>(a, strip, n, item);
+        walk_segment<L, V>(a, strip, sg, warp_smem);
+      }
+    }
+    if (k > 0) {
+      const int strip = a.up ? n_strips - k : k - 1;
+      const int n = min(S, a.h - strip * S);
+      const bool all = walkers >= warps;
+      const int crank = all ? rank : rank - walkers;
+      if (crank >= 0)
+        combine_strip(a, strip, n, static_cast<long long>(crank) * 32 + lane,
+                      static_cast<long long>(all ? warps : warps - walkers) * 32);
+    }
+    if (k < n_strips) grid.sync();
+  }
+}
+
+// The cooperative grid of sgm_strips_f32_kernel<L, V> on the current device:
+// every block co-resident (SMs x blocks an SM). The first call on a device
+// opts the kernel into its shared memory (above 48 KB).
+template <int L, int V>
+cudaError_t strips_grid(int* blocks) {
+  static int cached[8];  // blocks on each device, 0 until first asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 8 && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  const int smem = kStripWarps * strip_warp_bytes<V>();
+  err = cudaFuncSetAttribute(sgm_strips_f32_kernel<L, V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sgm_strips_f32_kernel<L, V>,
+                                                      kStripWarps * 32, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = sms * per_sm;
+  if (dev < 8) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
+template <int L, int V>
+cudaError_t launch_strips(StripArgs a, cudaStream_t stream) {
+  const int row_warps = (2 * a.h + 32 / L - 1) / (32 / L);
+  sgm_rows_f32_kernel<L, V><<<(row_warps + kRowWarps - 1) / kRowWarps, kRowWarps * 32,
+                              kRowWarps * row_warp_bytes<V>(), stream>>>(
+      a.cost, a.p2_x, a.p2_buf, a.p3_buf, a.h, a.w, a.n_disp, a.p1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = strips_grid<L, V>(&blocks);
+  if (err != cudaSuccess) return err;
+  for (int up = 0; up < 2; ++up) {  // the down pass, then the up pass
+    a.up = up;
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel((void*)sgm_strips_f32_kernel<L, V>, dim3(blocks),
+                                      dim3(kStripWarps * 32), params,
+                                      kStripWarps * strip_warp_bytes<V>(), stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // cost: (H, W, D) float32; p2_y/p2_x: (H, W) float32; partial: (P, H, W, D)
@@ -734,4 +1222,57 @@ SVT_API int svt_sgm_paths(const void* cost, int cost_bytes, const void* p2_y, co
   if (cost_bytes == 1)
     return launch_int<int8_t>(cost, py, px, t, sc, h, w, n_disp, p1, num_paths, s);
   return launch_int<int16_t>(cost, py, px, t, sc, h, w, n_disp, p1, num_paths, s);
+}
+
+// K7's strip route (see "K7's strip route" above): the float32 SGM sum over
+// all four sweeps, 4 or 8 paths, in `order` (0 k7, 1 wdh, 2 k10, 3 k12).
+// cost: (H, W, D) float32; p2_y/p2_x: (H, W) float32; out: (H, W, D) float32,
+// written; p2_buf, p3_buf, a_buf: (H, W, D) float32 scratch; ring: (2, P, S,
+// W, D) float32 scratch, P = 3 (8 paths) or 1. Three launches in stream
+// order: the horizontal walks, the down pass, the up pass (both
+// cooperative). Refuses, before any launch, D % 8 != 0, D > 256, buffers not
+// 16-byte aligned and a strip height other than ops/sgm_cuda._strip_plan's;
+// an error of the cooperative launch is returned.
+SVT_API int svt_sgm_float_strips(const void* cost, const void* p2_y, const void* p2_x, void* out,
+                                 void* p2_buf, void* p3_buf, void* a_buf, void* ring, int h,
+                                 int w, int n_disp, float p1, int num_paths, int order,
+                                 int strip_rows, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(out) |
+                          reinterpret_cast<uintptr_t>(p2_buf) |
+                          reinterpret_cast<uintptr_t>(p3_buf) |
+                          reinterpret_cast<uintptr_t>(a_buf) | reinterpret_cast<uintptr_t>(ring);
+  if (h <= 0 || w <= 0 || n_disp < kVals || n_disp > 256 || n_disp % kVals != 0 ||
+      (num_paths != 4 && num_paths != 8) || order < kOrderK7 || order > kOrderK12 ||
+      strip_rows != strip_rows_for(w, n_disp) || align % 16 != 0 || p2_y == nullptr ||
+      p2_x == nullptr)
+    return cudaErrorInvalidValue;
+  StripArgs a;
+  a.cost = static_cast<const float*>(cost);
+  a.p2_y = static_cast<const float*>(p2_y);
+  a.p2_x = static_cast<const float*>(p2_x);
+  a.p2_buf = static_cast<float*>(p2_buf);
+  a.p3_buf = static_cast<float*>(p3_buf);
+  a.a_buf = static_cast<float*>(a_buf);
+  a.out = static_cast<float*>(out);
+  a.ring = static_cast<float*>(ring);
+  a.h = h;
+  a.w = w;
+  a.n_disp = n_disp;
+  a.paths = num_paths == 8 ? 3 : 1;
+  a.order = order;
+  a.up = 0;
+  a.strip_rows = strip_rows;
+  a.p1 = p1;
+  auto s = static_cast<cudaStream_t>(stream);
+  // 4 values a lane (one float4) up to D = 128, 8 above: L = D / V lanes a
+  // line, rounded up to a power of two
+#define SVT_STRIPS(L, V) launch_strips<L, V>(a, s)
+  if (n_disp > 128) return SVT_STRIPS(32, 8);
+  const int lanes = n_disp / 4;
+  if (lanes <= 2) return SVT_STRIPS(2, 4);
+  if (lanes <= 4) return SVT_STRIPS(4, 4);
+  if (lanes <= 8) return SVT_STRIPS(8, 4);
+  if (lanes <= 16) return SVT_STRIPS(16, 4);
+  return SVT_STRIPS(32, 4);
+#undef SVT_STRIPS
 }

@@ -13,18 +13,28 @@ path line with D across its lanes:
    addition wraps, which equals the int32 sum narrowed, in any order of
    adds; plain twin ``ops/sgm.aggregate_paths``;
  - float32 costs (K7, the float use of the same sweep kernels through
-   ``sgm_aggregate_pallas_sweeps``): each path writes a partial of its own,
-   and an ordered combine sums them per element in the order of the
+   ``sgm_aggregate_pallas_sweeps``), summed per element in the order of the
    reference route (``ops/sgm.ORDERS``), fused multiply-adds included; plain
-   twin ``ops/sgm.aggregate_paths_float``.
+   twin ``ops/sgm.aggregate_paths_float``. Two routes:
+   - the strip route (``svt_sgm_float_strips``, every call over all four
+     sweeps where :func:`_strip_plan` gives a strip height S): the
+     horizontal walks into two buffers; then the down group and the up group
+     each walk the image in strips of S rows, each in a cooperative launch,
+     their three path partials kept in a two-slot ring that stays in L2, each
+     strip's group sum taken while the next strip walks; the up pass writes
+     the route's total;
+   - the generic form (sweep subsets, D % 8 != 0, unaligned costs): each
+     path writes a partial of its own, then an ordered combine.
 
 K10 (``sgm_aggregate_hwd``, twin of ``sgm_aggregate_pallas``), K11
 (``sweep_pair``, twin of ``_sweep_hdw_bidir``) and K12 (``sgm_extract_fused``,
-twin of ``sgm_extract_fused_hdw``) run on the same kernels.
+twin of ``sgm_extract_fused_hdw``) run on the same kernels: K10 and K12 on
+the strip route, K11 (a sweep pair) on the generic form.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -45,6 +55,10 @@ from stereovisionarray_tpu_torch.ops.sgm import (
 
 MAX_DISPARITIES = 256  # 8 values a lane
 _SWEEP_BITS = {"down": 1, "up": 2, "lr": 4, "rl": 8}
+# K7's strip route: the ring holds two slots of the three path partials of a
+# vertical group over S rows, and is kept within about half the H100's 50 MB L2
+STRIP_RING_BYTES = 24 << 20
+MAX_STRIP_ROWS = 32
 
 
 def _check_disparities(D: int) -> None:
@@ -126,11 +140,53 @@ def _combine(partial, mask, num_paths, sweeps, order):
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _strip_plan(h: int, w: int, D: int, num_paths: int, sweeps: tuple,
+                aligned: bool) -> Optional[int]:
+    """K7's strip height S for an (h, w, D) float sum over `sweeps`, or None
+    for the generic form: a sweep subset, D % 8 != 0 (a lane holds 4 or 8
+    consecutive d as 16-byte words) or costs not 16-byte aligned. S is
+    the largest power of two <= 32 whose ring, 2 slots x 3 paths x S rows of
+    w * D floats, fits in ``STRIP_RING_BYTES`` (1 where none does). It does
+    not depend on h or on `num_paths`: 4 paths fill a third of the ring."""
+    if tuple(sweeps) != ALL_SWEEPS or D % 8 or not aligned:
+        return None
+    rows = MAX_STRIP_ROWS
+    while rows > 1 and 2 * 3 * rows * w * D * 4 > STRIP_RING_BYTES:
+        rows //= 2
+    return rows
+
+
+def _launch_strips(vol, p2_y, p2_x, p1, num_paths, order, strip_rows):
+    """K7's strip route: one entry point, three launches in stream order
+    (the horizontal walks, the down pass, the up pass with the combine)."""
+    h, w, D = vol.shape
+    _check_disparities(D)
+    _native.check(vol, "vol", torch.float32, (h, w, D))
+    _native.check(p2_y, "p2_y", torch.float32, (h, w))
+    _native.check(p2_x, "p2_x", torch.float32, (h, w))
+    f32 = dict(dtype=torch.float32, device=vol.device)
+    out = torch.empty((h, w, D), **f32)
+    scratch = torch.empty((3, h, w, D), **f32)  # left->right, right->left, the down group
+    ring = torch.empty((2, 3 if num_paths == 8 else 1, strip_rows, w, D), **f32)
+    _native.launch("svt_sgm_float_strips", vol.device, vol.data_ptr(), p2_y.data_ptr(),
+                   p2_x.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
+                   scratch[1].data_ptr(), scratch[2].data_ptr(), ring.data_ptr(), h, w, D,
+                   float(p1), num_paths, ORDERS.index(order), strip_rows)
+    return out
+
+
 def _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order):
-    """The float path scans over `sweeps`, then their ordered combine."""
+    """The float sum over `sweeps`: (total, whether the strip route ran).
+    The strip route where :func:`_strip_plan` gives a strip height, else the
+    generic form: the path scans over `sweeps`, then their ordered combine."""
+    h, w, D = vol.shape
+    strip_rows = _strip_plan(h, w, D, num_paths, tuple(sweeps), vol.data_ptr() % 16 == 0)
+    if strip_rows is not None:
+        return _launch_strips(vol, p2_y, p2_x, p1, num_paths, order, strip_rows), True
     groups = sweep_paths(num_paths)
     partial, mask = _float_partials(vol, p2_y, p2_x, p1, [p for s in sweeps for p in groups[s]])
-    return _combine(partial, mask, num_paths, sweeps, order)
+    return _combine(partial, mask, num_paths, sweeps, order), False
 
 
 def sgm_aggregate_float(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
@@ -139,16 +195,22 @@ def sgm_aggregate_float(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tenso
     """K7: the float32 SGM sum over `sweeps` of an (H, W, D) float32 volume,
     in `order` (``ops/sgm.ORDERS``); p2_y/p2_x (H, W) float32, p1 a float.
     ``sweeps`` is the reference's ``sgm_aggregate_pallas_sweeps`` subset (k7
-    order only); the sums over a split of the four add up to the whole."""
+    order only); the sums over a split of the four add up to the whole.
+    ``launches`` counts the strip route's calls, ``generic_launches`` the
+    generic form's."""
     sweeps = check_sweeps(sweeps, order)
     if resolve_backend(vol, backend) != "cuda":
         return aggregate_paths_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
-    out = _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
-    sgm_aggregate_float.launches += 1
+    out, strips = _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
+    if strips:
+        sgm_aggregate_float.launches += 1
+    else:
+        sgm_aggregate_float.generic_launches += 1
     return out
 
 
 sgm_aggregate_float.launches = 0
+sgm_aggregate_float.generic_launches = 0
 
 
 def sgm_aggregate_hwd(vol: torch.Tensor, p1: float = 8.0, p2: float = 96.0,
@@ -170,7 +232,7 @@ def sgm_aggregate_hwd(vol: torch.Tensor, p1: float = 8.0, p2: float = 96.0,
         if floating:
             return aggregate_paths_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10")
         return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
-    out = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10") if floating
+    out = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10")[0] if floating
            else _launch_int(vol, p2_y, p2_x, p1, num_paths))
     sgm_aggregate_hwd.launches += 1
     return out
@@ -217,7 +279,7 @@ def sgm_extract_fused(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor,
                  if floating else aggregate_paths(vol, p2_y, p2_x, p1, num_paths))
         return extract_cuda.extract_disparity_maps(total, subpixel, uniqueness, lr_max_diff,
                                                    backend)
-    total = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k12") if floating
+    total = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k12")[0] if floating
              else _launch_int(vol, p2_y, p2_x, p1, num_paths))
     maps = extract_cuda.launch_disparity_maps(total, subpixel, uniqueness, lr_max_diff)
     sgm_extract_fused.launches += 1

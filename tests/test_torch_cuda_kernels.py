@@ -11,7 +11,10 @@ outside the range, its 128-bit path and its scalar path (W % 4 != 0,
 misaligned views), and its 2-D form against two K9 launches; the float
 kernels: K1's float32 store, the float SGM scans and ordered combine (K7,
 every order and sweep subset, 4 and 8 paths, every lanes-per-warp width, and
-the K10-K12 entry points over them), and the extraction K6 over float32,
+the K10-K12 entry points over them; its strip route at the float paths'
+shapes, with an image narrower than its strip height, its generic form where
+the plan refuses, the strip entry point's refusals, and that it does not
+wait for the card), and the extraction K6 over float32,
 int8 and int16 volumes with uniqueness and LR; the extraction kernel with
 the LR check fused (K4 with K5's check) over the three dtypes and every
 cluster width, K6 with LR in one launch, and the integer two-view path with
@@ -44,8 +47,9 @@ from stereovisionarray_tpu_torch.ops.extract_cuda import (
     lr_gather,
 )
 from stereovisionarray_tpu_torch.ops.hatsample import MAX_ROW_BYTES, hat_sample, hat_sample_2d
-from stereovisionarray_tpu_torch.ops.sgm import ORDERS, p2_maps
+from stereovisionarray_tpu_torch.ops.sgm import ALL_SWEEPS, ORDERS, p2_maps
 from stereovisionarray_tpu_torch.ops.sgm_cuda import (
+    _strip_plan,
     sgm_aggregate_float,
     sgm_aggregate_hwd,
     sgm_aggregate_paths,
@@ -590,6 +594,89 @@ def test_integer_scans_launch_no_zero_fill_and_no_narrowing(rng):
     assert total.dtype == torch.int16
     assert not ops & {"aten::zeros", "aten::zero_", "aten::fill_", "aten::to", "aten::_to_copy",
                       "aten::copy_"}, ops
+
+
+# ---- K7 redesigned: the strip route (the down and up groups in row strips kept in L2) ----
+
+def _route_counts():
+    return sgm_aggregate_float.launches, sgm_aggregate_float.generic_launches
+
+
+def _strip_inputs(rng, h, w, D):
+    vol = _float_volume(rng, h, w, D)
+    image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
+    return (vol, *p2_maps((h, w), 96.0, torch.float32, vol.device, image, True, 24.0))
+
+
+@pytest.mark.parametrize("h,w,D,orders", [
+    (540, 768, 64, ORDERS), (541, 766, 48, ORDERS), (270, 360, 128, ("wdh",)),
+    (75, 20, 64, ORDERS),  # W = 20 < S = 32
+])
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_float_sgm_strip_route(rng, h, w, D, orders, num_paths):
+    """The strip route at the float paths' shapes and the parity shapes,
+    bit-exact to the plain twin in every order given."""
+    vol, p2_y, p2_x = _strip_inputs(rng, h, w, D)
+    assert _strip_plan(h, w, D, num_paths, ALL_SWEEPS, True) is not None
+    for order in orders:
+        before = _route_counts()
+        got = sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths, order=order, backend="cuda")
+        after = _route_counts()
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+        _same(got, sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths, order=order,
+                                       backend="torch"))
+
+
+def test_float_sgm_generic_form_where_the_plan_refuses(rng):
+    """D % 8 != 0 and a costs view 4 bytes off alignment take the generic form."""
+    vol, p2_y, p2_x = _strip_inputs(rng, 30, 41, 60)
+    storage = _float_volume(rng, 1, 1, 30 * 41 * 64 + 1).reshape(-1)
+    for v in (vol, storage[1:].view(30, 41, 64)):
+        py, px = (p2_y, p2_x)
+        before = _route_counts()
+        got = sgm_aggregate_float(v, py, px, 8.0, 8, backend="cuda")
+        after = _route_counts()
+        assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+        _same(got, sgm_aggregate_float(v, py, px, 8.0, 8, backend="torch"))
+
+
+def test_strip_entry_point_refuses_what_the_plan_would_not_give(rng):
+    """svt_sgm_float_strips refuses, before any launch, a strip height the
+    plan would not give, D % 8 != 0, unaligned buffers, bad paths or order;
+    the output keeps what it held."""
+    h, w, D = 20, 40, 64
+    vol, p2_y, p2_x = _strip_inputs(rng, h, w, D)
+    S = _strip_plan(h, w, D, 8, ALL_SWEEPS, True)
+    out = torch.full((h, w, D), -7.0, device="cuda")
+    scratch = torch.empty((3, h, w, D), device="cuda")
+    ring = torch.empty((2, 3, S, w, D), device="cuda")
+
+    def launch(vol_ptr=vol.data_ptr(), d=D, num_paths=8, order=0, strip_rows=S,
+               ring_ptr=ring.data_ptr()):
+        _native.launch("svt_sgm_float_strips", vol.device, vol_ptr, p2_y.data_ptr(),
+                       p2_x.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
+                       scratch[1].data_ptr(), scratch[2].data_ptr(), ring_ptr, h, w, d, 8.0,
+                       num_paths, order, strip_rows)
+
+    for bad in (dict(strip_rows=S // 2), dict(strip_rows=S + 1), dict(d=60), dict(d=264),
+                dict(vol_ptr=vol.data_ptr() + 4), dict(ring_ptr=ring.data_ptr() + 8),
+                dict(num_paths=6), dict(order=4)):
+        with pytest.raises(RuntimeError, match="svt_sgm_float_strips"):
+            launch(**bad)
+    torch.cuda.synchronize()
+    assert bool((out == -7.0).all())  # nothing ran
+    launch()
+    _same(out, sgm_aggregate_float(vol, p2_y, p2_x, 8.0, 8, backend="torch"))
+
+
+def test_float_sgm_strip_route_does_not_wait(rng):
+    """The strip route's three launches (two of them cooperative) return
+    while a spin runs on the card."""
+    vol, p2_y, p2_x = _strip_inputs(rng, 270, 360, 128)
+    waited_not, got = _queued_behind_a_spin(
+        lambda: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, 8, order="wdh"))
+    assert waited_not
+    _same(got, sgm_aggregate_float(vol, p2_y, p2_x, 8.0, 8, order="wdh", backend="torch"))
 
 
 # ---- K8 redesigned: the specialised kernel (patch 3, 5, 7; top-k <= 8) and the generic one ----
