@@ -106,6 +106,17 @@ L2) adds:
  4d. the float paths must not run the generic form; a sweep subset runs it
     as an entry point ("K7 generic");
  6d. the strip route at the array's ZNCC shape ("at_shapes" in its row).
+The redesign of K1 (the rows staged once, a census a pixel, runs of
+disparities stored 16 bytes at a time) adds:
+ 3f. K1 at every K1_ROWS shape (int8, int16 and float32 at 540x768x64, the
+    entry and golden shapes, 540x768x256, the two-view cascade's coarse and
+    fine passes, 541x766x48) against its plain version, bit-exact, BT on and
+    off at the bench shape: the plan must be tiled at every path's row and
+    generic at the last (47 bytes a pixel);
+ 4-4d. a line naming the form of every cost volume the paths launched (it
+    fails on the generic form);
+ 6. K1 at the other shapes the paths give it ("at_shapes" in its row), each
+    bound counting the volume's element size.
 The line before the last lists every kernel with its launches, parity error,
 wrapper time, device time, plain time, bound (the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
@@ -193,6 +204,7 @@ EVAL_CASCADE_R05 = {
 FLOAT_GOLDEN = {"bad_2.0": 0.007297772914171219, "epe": 0.2934589385986328,
                 "density": 0.9592484831809998}
 FLOAT_GOLDEN_TOL = 1e-6
+ELEMENT_BYTES = {"int8": 1, "int16": 2, "float32": 4}
 # H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -220,6 +232,26 @@ K7_STRIP_ROWS = (
     ((270, 360, 128), ("wdh",)),
     ((75, 20, 64), ("k7", "k12")),
 )
+# the cost volume K1 at every shape a path gives it, and the odd parity shape:
+# (row, (H, W, D), census window, volume type). The two-view cascade's coarse
+# pass runs at a quarter of 540x768 with a 5x7 census and 64 disparities, its
+# fine pass at 24 (models/cascade.py:200-240, chip_smoke's cascade config);
+# the last row (47 bytes a pixel) is the generic form's: no path gives it.
+K1_ROWS = (
+    ("two_view_bench_int8", (540, 768, 64), (7, 9), "int8"),
+    ("two_view_bench_int16", (540, 768, 64), (7, 9), "int16"),
+    ("two_view_bench_float32", (540, 768, 64), (7, 9), "float32"),
+    ("two_view_entry", (256, 384, 64), (7, 9), "int16"),
+    ("golden_int16", (540, 720, 64), (7, 9), "int16"),
+    ("golden_float32", (540, 720, 64), (7, 9), "float32"),
+    ("two_view_flat_d256", (540, 768, 256), (7, 9), "int8"),
+    ("cascade_coarse", (135, 192, 64), (5, 7), "int8"),
+    ("cascade_fine", (540, 768, 24), (7, 9), "int8"),
+    ("parity_int8", (541, 766, 48), (7, 9), "int8"),
+    ("parity_int16", (541, 766, 48), (7, 9), "int16"),
+    ("parity_float32", (541, 766, 48), (7, 9), "float32"),
+    ("generic_d47", (541, 766, 47), (7, 9), "int8"),  # no path: the generic form
+)
 
 
 def extraction_volume(torch, h, w, D, vtype):
@@ -240,6 +272,19 @@ def extraction_volume(torch, h, w, D, vtype):
         py, px = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
         return sgm_aggregate_float(costs, py, px, 8.0, 8)
     return costs
+
+
+def k1_bound(h, w, D, window, element_bytes, as_ms=True):
+    """K1's least work: both images read once and the (h, w, D) volume of
+    `element_bytes` written once; two operations a census word (XOR,
+    popcount) and 14 for BT and the store an element. As (bytes, operations),
+    or as ms over the H100's HBM rate and float32 peak."""
+    n_words = -(-(window[0] * window[1] - 1) // 64)
+    nbytes = 2 * h * w * 4 + h * w * D * element_bytes
+    ops = h * w * D * (2 * n_words + 14)
+    if not as_ms:
+        return nbytes, ops
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
 def extraction_call(extract_maps, extract_disparity_maps, kernel, vol, lr, right=False):
@@ -393,6 +438,7 @@ def main() -> None:
     from stereovisionarray_tpu_torch.datasets.middlebury import load_middlebury_pair
     from stereovisionarray_tpu_torch.evaluation import bad_pixel_ratio, end_point_error
     from stereovisionarray_tpu_torch.models.two_view import scaled_penalties, two_view_disparity
+    from stereovisionarray_tpu_torch.ops.cost_cuda import _tile_plan as cost_tile_plan
     from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
     from stereovisionarray_tpu_torch.ops.extract_cuda import extract_maps, lr_gather
     from stereovisionarray_tpu_torch.ops.sgm import p2_maps, sum_dtype
@@ -814,6 +860,35 @@ def main() -> None:
             fail(f"the extraction's plan at {row} runs the {form['form']} form")
         del vol, got, want
 
+    # ---- 3f. the cost volume at every shape a path gives it ------------------
+    # K1's tiled kernel at every path's shape (int8, int16, float32; D = 24,
+    # 48, 64, 256; the 5x7 census of the cascade's coarse pass), BT on and off
+    # at the bench shape, and its generic form at the last row
+    k1 = kernels[0]
+    cost_rows = []
+    for row, (ch, cw, cd), window, vtype in K1_ROWS:
+        left, right = stereo_pair(torch, ch, cw, seed=ch + cd, integer=vtype == "int8")
+        plan = cost_tile_plan(ch, cw, cd, window, ELEMENT_BYTES[vtype])
+        errs = {}
+        for bw in ((0.25, 0.0) if row == "two_view_bench_int8" else (0.25,)):
+            got = fused_cost_volume_cuda(left, right, cd, window, bw, 32.0, vtype, "cuda")
+            want = fused_cost_volume_cuda(left, right, cd, window, bw, 32.0, vtype, "torch")
+            torch.cuda.synchronize()
+            errs[f"bt_weight_{bw}"] = max_err(torch, got, want)
+            del got, want
+        k1["max_abs_err"] = max(k1["max_abs_err"], *errs.values())
+        form = {"row": row, "shape": [ch, cw, cd], "window": list(window), "dtype": vtype,
+                "form": "tiled" if plan else "generic", "tile": plan.tile if plan else 0,
+                "run_bytes": plan.run_bytes if plan else None,
+                "chunk_runs": plan.chunk_runs if plan else None,
+                "smem_bytes": plan.smem_bytes if plan else None}
+        cost_rows.append(form)
+        emit({"phase": "cost_parity", **form, "max_abs_err": errs, **tag})
+        if any(e != 0.0 for e in errs.values()):
+            fail(f"K1 differs from its plain version at {row}: {errs}")
+        if (plan is None) != row.startswith("generic"):
+            fail(f"K1's plan at {row} runs the {form['form']} form")
+
     # ---- 4. main path --------------------------------------------------------
     bench_cfg = (CostConfig(num_disparities=64, census_window=(7, 9), dtype="int8"),
                  SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True))
@@ -825,6 +900,8 @@ def main() -> None:
     real_launch = _native.launch
     # (H, W, D, volume bytes, LR, tile) of every extraction launched on a path
     extract_launches = collections.Counter()
+    # (H, W, D, volume bytes, tile) of every cost volume launched on a path
+    cost_launches = collections.Counter()
 
     def counted(run):
         """run() with every launch count set to 0 just before: (output, the
@@ -835,6 +912,8 @@ def main() -> None:
             entries[name] += 1
             if name == "svt_extract_maps":  # args: device, total, bytes, h, w, D, ..., lr, tile
                 extract_launches[(*args[3:6], args[2], args[8] > 0, args[9])] += 1
+            if name == "svt_cost_volume":  # device, left, right, out, bytes, h, w, D, ..., tile
+                cost_launches[(*args[5:8], args[4], args[14])] += 1
             return real_launch(name, *args)
 
         for k in all_kernels:
@@ -1092,6 +1171,13 @@ def main() -> None:
           **tag})
     if any(f["form"] != "tiled" for f in path_forms):
         fail(f"a path ran the extraction's generic form: {path_forms}")
+    # the same for K1: every cost volume the paths above launched is tiled
+    cost_forms = [{"shape": list(key[:3]), "bytes": key[3], "tile": key[4],
+                   "form": "tiled" if key[4] else "generic", "launches": n}
+                  for key, n in sorted(cost_launches.items())]
+    emit({"phase": "cost_forms", "plan_rows": cost_rows, "path_launches": cost_forms, **tag})
+    if not cost_forms or any(f["form"] != "tiled" for f in cost_forms):
+        fail(f"a path ran K1's generic form (or none ran K1): {cost_forms}")
 
     # ---- 5. golden fixture -------------------------------------------------
     pair = load_middlebury_pair(str(REPO / "data" / "eval_scene"))
@@ -1207,6 +1293,24 @@ def main() -> None:
             "plain_ms": cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         emit({"phase": "timing", "kernel": k4["name"], "row": row, **k4["at_shapes"][row], **tag})
+    # K1 at the other shapes the paths give it (the bench int8 row is K1's own)
+    k1["at_shapes"] = {}
+    for row in ("two_view_bench_int16", "two_view_bench_float32", "two_view_entry",
+                "two_view_flat_d256", "cascade_coarse", "cascade_fine"):
+        _, (ch, cw, cd), window, vtype = next(r for r in K1_ROWS if r[0] == row)
+        left, right = stereo_pair(torch, ch, cw, seed=ch + cd, integer=vtype == "int8")
+        call = lambda b: fused_cost_volume_cuda(left, right, cd, window, 0.25, 32.0,  # noqa: E731
+                                                vtype, b)
+        t_bytes, t_ops = k1_bound(ch, cw, cd, window, ELEMENT_BYTES[vtype])
+        k1["at_shapes"][row] = {
+            "shape": [ch, cw, cd], "window": list(window), "dtype": vtype,
+            "tile": cost_tile_plan(ch, cw, cd, window, ELEMENT_BYTES[vtype]).tile,
+            "ms": cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
+            "device_ms": device_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
+            "plain_ms": cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        emit({"phase": "timing", "kernel": k1["name"], "row": row, **k1["at_shapes"][row], **tag})
 
     # ---- 6b. array timing -----------------------------------------------------
     for name, cfg in array_cfgs.items():
@@ -1376,7 +1480,8 @@ def main() -> None:
     # and packs, xor and popcount); K5 4 and K9 12 per pixel.
     HW, HWD = h * w, h * w * D
     bounds = {
-        "K1 cost_volume": (2 * HW * 4 + HWD, HWD * 16),
+        # K1 at the bench shape's int8 volume
+        "K1 cost_volume": k1_bound(h, w, D, (7, 9), 1, as_ms=False),
         "K2/K3 sgm_paths": (HWD + 2 * HW * 2 + HWD * 2, 8 * HWD * 8),
         "K4 extract_maps": (HWD * 2 + HW * 17, HWD * 6),
         "K5 lr_gather": (HW * 12, HW * 4),

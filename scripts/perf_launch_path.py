@@ -35,11 +35,12 @@ enqueued every launch before it ends). The same for the PyTorch call that
 computes the same function (``torch.gather``, ``grid_sample``).
 
 With ``--kernels``, every kernel's device time at the main paths' shapes
-(the same spin), on inputs made from a seed: K2/K3 at 540x768x64 int8 and
-int16, 540x768x256 and 270x360x128, K8 at CROSS and to_center, K1, K9
-beside them, K7 at 540x768x64 (k7 order) and 270x360x128 (wdh), whole and
-its generic form's walks and combine apart (and each kernel of the whole
-call from ``torch.profiler``), K10-K12 at 540x768x64, and the extraction
+(the same spin), on inputs made from a seed: K1 at every shape a path gives
+it (``chip_smoke.K1_ROWS``, each line naming the kernel form that ran), K2/K3
+at 540x768x64 int8 and int16, 540x768x256 and 270x360x128, K8 at CROSS and
+to_center, K9 beside them, K7 at 540x768x64 (k7 order) and 270x360x128
+(wdh), whole and its generic form's walks and combine apart (and each kernel
+of the whole call from ``torch.profiler``), K10-K12 at 540x768x64, and the extraction
 K4 / K6 at every shape, volume type and LR setting a path gives it
 (``chip_smoke.EXTRACT_ROWS``; each line names the kernel form that ran,
 where the checkout's ``ops/extract_cuda`` has a tile plan). With ``--e2e``,
@@ -47,7 +48,8 @@ the end-to-end times of the paths, CUDA events over warm frames as
 ``chip_smoke.py`` times them: two-view at 540x768x64 (int8, int16, float32
 with uniqueness and LR), the flat two-view at 540x768x256 and its cascade,
 the array (5x5 of 270x360, 128 planes) at CROSS, to_center, CROSS with ZNCC
-costs and its cascade.
+costs and its cascade; for the two-view paths also the frame's device time
+(the frames queued behind a GPU spin, free of the host's pace).
 
 ``--package-root DIR`` imports the package from another checkout (an
 unpacked older commit), so that two versions compare within one call, in
@@ -261,10 +263,11 @@ def main() -> None:
 
 def kernel_device_times(torch, emit, iters: int = 20) -> None:
     """Device ms of every kernel wrapper at the main paths' shapes, on one
-    set of inputs made from a seed (the same in every checkout): K1, K2/K3 at
-    540x768x64 int8 and int16, at the flat cascade's 540x768x256 and at the
-    array's 270x360x128, K7, the extraction rows (K4, K4 with the fused LR
-    check, K6), K8 at CROSS and to_center, K9 and its 2-D form."""
+    set of inputs made from a seed (the same in every checkout): K1 at every
+    ``chip_smoke.K1_ROWS`` shape, K2/K3 at 540x768x64 int8 and int16, at the
+    flat cascade's 540x768x256 and at the array's 270x360x128, K7, the
+    extraction rows (K4, K4 with the fused LR check, K6), K8 at CROSS and
+    to_center, K9 and its 2-D form."""
     from stereovisionarray_tpu_torch import config
     from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
     from stereovisionarray_tpu_torch.models.array_pipeline import reference_and_sources
@@ -283,8 +286,22 @@ def kernel_device_times(torch, emit, iters: int = 20) -> None:
     rng = np.random.default_rng(0)
     h, w, D = chip_smoke.BENCH_SHAPE
     left, right = chip_smoke.stereo_pair(torch, h, w, seed=0)
-    timed("K1 cost_volume", lambda: fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0,
-                                                           "int8"), shape=[h, w, D])
+    # K1 at every shape a path gives it (chip_smoke.K1_ROWS; each line names
+    # the kernel form that ran, where the checkout's ops/cost_cuda has a plan)
+    from stereovisionarray_tpu_torch.ops import cost_cuda
+
+    cost_plan = getattr(cost_cuda, "_tile_plan", None)  # absent before the tiled kernel
+    for row, (hh, ww, dd), window, dtype in chip_smoke.K1_ROWS:
+        if row.startswith("generic"):
+            continue
+        lo, ro = chip_smoke.stereo_pair(torch, hh, ww, seed=hh + dd, integer=dtype == "int8")
+        form = None
+        if cost_plan is not None:
+            size = chip_smoke.ELEMENT_BYTES[dtype]
+            form = "tiled" if cost_plan(hh, ww, dd, window, size) else "generic"
+        timed("K1 cost_volume", lambda: fused_cost_volume_cuda(lo, ro, dd, window, 0.25, 32.0,
+                                                               dtype),
+              row=row, shape=[hh, ww, dd], dtype=dtype, form=form)
     for shape, dtype in (((h, w, 64), "int8"), ((h, w, 64), "int16"), ((h, w, 256), "int8"),
                          ((270, 360, 128), "int8")):
         hh, ww, dd = shape
@@ -445,8 +462,10 @@ def e2e(torch, emit) -> None:
                               list(chip_smoke.ARRAY_SHAPE))}
     for name, (run, shape) in runs.items():
         frames = chip_smoke.ARRAY_FRAMES if name.startswith("array") else chip_smoke.TIMED_FRAMES
-        emit({"e2e": name, "shape": shape, "frames": frames,
-              "ms": cuda_ms(torch, run, frames)})
+        line = {"e2e": name, "shape": shape, "frames": frames, "ms": cuda_ms(torch, run, frames)}
+        if name.startswith("two_view"):  # the frame's device time, free of the host's pace
+            line["device_ms"] = device_ms(torch, run, frames)
+        emit(line)
 
 
 if __name__ == "__main__":

@@ -47,8 +47,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types, the trailing stream included
 _SIGNATURES = {
     # left, right, out, out_bytes, h, w, n_disp, win_h, win_w,
-    # bt_weight, bt_clip, worst, scale, stream
-    "svt_cost_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    # bt_weight, bt_clip, worst, scale, tile, stream
+    "svt_cost_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     # cost, cost_bytes, p2_y, p2_x, total, scratch, h, w, n_disp, p1, num_paths, stream
     "svt_sgm_paths": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # cost, p2_y, p2_x, partial, h, w, n_disp, p1, path_mask, stream

@@ -22,7 +22,10 @@ no standalone K5; the extraction's tiled form at the main paths' shapes
 (540x768x256 int16 with LR, the array's 270x360x128 without the right view),
 on its narrower tiles and in its element staging (an offset view, D = 97),
 on wrapped int16 totals, its generic form (float32, D = 256, LR), and the
-entry point's refusal of a tile or stride it does not take.
+entry point's refusal of a tile or stride it does not take; the cost
+volume's tiled form at the main paths' shapes (C = 256, 128, 64; 8- and
+16-byte runs; the cascade's 5x7 census; images not 16-byte aligned), its
+generic form (47 bytes a pixel), and the entry point's refusals.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -37,6 +40,7 @@ import torch
 from stereovisionarray_tpu_torch import _native
 from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
 from stereovisionarray_tpu_torch.models.two_view import two_view_disparity
+from stereovisionarray_tpu_torch.ops.cost_cuda import _tile_plan as cost_tile_plan
 from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
 from stereovisionarray_tpu_torch.ops.extract_cuda import (
     MAX_LR_WIDTH,
@@ -91,12 +95,49 @@ def _same(got, want):
     (20, 129, 64, (7, 9), 0.25, "float32"),  # float32 store: unscaled, no rounding
     (9, 70, 100, (11, 13), 0.3, "float32"),  # out-of-image cost in float32 arithmetic
     (17, 50, 3, (3, 3), 0.0, "float32"),
+    # the tiled form: C = 256 at the bench width, every type
+    (100, 768, 64, (7, 9), 0.25, "int8"),
+    (100, 768, 64, (7, 9), 0.25, "int16"),
+    (100, 768, 64, (7, 9), 0.25, "float32"),
+    (256, 384, 64, (7, 9), 0.25, "int16"),  # the entry shape: C = 128
+    (30, 768, 256, (7, 9), 0.25, "int8"),  # C = 64 at D = 256
+    (135, 192, 64, (5, 7), 0.25, "int8"),  # the cascade's coarse pass
+    (40, 768, 24, (7, 9), 0.25, "int8"),  # 8-byte runs: the cascade's fine pass
+    (41, 766, 48, (7, 9), 0.0, "float32"),  # W % 4 != 0: staged a float at a time
+    (20, 100, 47, (7, 9), 0.25, "int8"),  # 47 bytes a pixel: the generic form
 ])
 def test_cost_volume_kernel(rng, h, w, D, window, bt_weight, dtype):
     img = np.floor(rng.uniform(0, 256, (h, w + 8))).astype(np.float32)
     left, right = _cuda(img[:, :w]), _cuda(img[:, 8:])
     call = lambda b: fused_cost_volume_cuda(left, right, D, window, bt_weight, 32.0, dtype, b)  # noqa: E731
     _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "float32"])
+def test_cost_volume_tiles_at_the_path_shapes(rng, monkeypatch, dtype):
+    """The wrapper launches the tiled form with the plan's tile at the bench
+    shape, also on images at an offset of one float (the scalar staging)."""
+    h, w, D = 540, 768, 64
+    base = torch.from_numpy(np.floor(rng.uniform(0, 256, 2 * h * w + 1)).astype(np.float32)).cuda()
+    left, right = base[1:h * w + 1].view(h, w), base[h * w + 1:].view(h, w)
+    tiles = []
+    real = _native.launch
+    monkeypatch.setattr(_native, "launch",
+                        lambda name, *a: (tiles.append(a[14]), real(name, *a))[1])
+    got = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, dtype)
+    assert tiles == [cost_tile_plan(h, w, D, (7, 9), got.element_size()).tile] == [256]
+    _same(got, fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, dtype, "torch"))
+
+
+@pytest.mark.parametrize("tile,D", [(32, 64), (512, 64), (256, 47), (64, 30000)])
+def test_cost_volume_entry_refuses(rng, tile, D):
+    """svt_cost_volume refuses a tile it does not take, a pixel row of a size
+    that is not a multiple of 8 bytes and a stage larger than shared memory."""
+    left = _cuda(rng.uniform(0, 255, (8, 64)).astype(np.float32))
+    out = torch.empty((8, 64, D), dtype=torch.int8, device=left.device)
+    with pytest.raises(RuntimeError, match="svt_cost_volume"):
+        _native.launch("svt_cost_volume", left.device, left.data_ptr(), left.data_ptr(),
+                       out.data_ptr(), 1, 8, 64, D, 7, 9, 0.25, 32.0, 70.0, 1.0, tile)
 
 
 @pytest.mark.parametrize("num_paths", [4, 8])

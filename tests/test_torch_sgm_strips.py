@@ -286,6 +286,10 @@ def _launched(monkeypatch, vol, num_paths=8, sweeps=ALL_SWEEPS, order="k7", fn=N
     monkeypatch.setattr(_native, "check", lambda *a: None)
     monkeypatch.setattr(_native, "launch", lambda name, device, *args: seen.append((name, args)))
     monkeypatch.setattr(sgm_cuda, "resolve_backend", lambda t, b="auto": "cuda")
+    for wrapper in (sgm_cuda.sgm_aggregate_float, sgm_cuda.sgm_aggregate_hwd,
+                    sgm_cuda.sweep_pair, sgm_cuda.sgm_extract_fused):
+        for counter in [c for c in vars(wrapper) if c.endswith("launches")]:
+            monkeypatch.setattr(wrapper, counter, getattr(wrapper, counter))  # restored after
     h, w, _ = vol.shape
     p2 = torch.full((h, w), 32.0)
     if fn is None:
