@@ -117,6 +117,27 @@ disparities stored 16 bytes at a time) adds:
     fails on the generic form);
  6. K1 at the other shapes the paths give it ("at_shapes" in its row), each
     bound counting the volume's element size.
+The served capture path (face ROI, the temporal filter, the streaming serve
+loop, multi-view fusion) adds, after the phases above:
+ 4e. served path: 8 frame-sets of bench_array.py's config (5x5, 270x360, 128
+    planes, CROSS) written as PNGs and decoded by frame_sets_from_dirs (the
+    decoder that ran is printed), served by stream_depth_maps(depth=2) and
+    stream_depth_maps_chunked(chunk=4, temporal=TemporalParams(...)) with the
+    rig's tensors on the card: every output bit-exact to direct
+    array_depth_pipeline calls and the port's filter over them, set 0 bit-exact
+    to backend="torch"; use_roi in both modes, on a served set and on one whose
+    reference view is a head scene, each mask against the CPU's by IoU; K8,
+    K2/K3 and K4 must launch;
+ 5e. records of the JAX package's EVAL files, each against its tolerance:
+    the face detector over the 12 head scenes (EVAL_ROBUST_r05.json level 0),
+    the temporal filter on data/eval_scene at noise level 1
+    (EVAL_TEMPORAL_r05.json; the filtered EPE must also stay below the
+    per-frame EPE), reconstruct_array on the 5x5 rig at 135x180
+    (EVAL_FUSION_r04.json);
+ 6e. served timing: frame-sets per second of the served loop against a serial
+    loop (in turns), its decode share and the host time inside each pipeline
+    call, the chunked loop with the filter, and temporal_update, face_mask,
+    fuse_depth_maps and reconstruct_array.
 The line before the last lists every kernel with its launches, parity error,
 wrapper time, device time, plain time, bound (the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
@@ -350,6 +371,186 @@ def array_cascade_metrics(torch, device) -> dict:
     return cascade_depth_metrics(out.refined_depth, out.valid, depths[ref_index])
 
 
+def gauss_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable Gaussian blur, edge-clamped (numpy only; a copy of
+    scripts/make_robust_eval.py:50-68)."""
+    if sigma <= 1e-6:
+        return img
+    r = max(1, int(3.0 * sigma + 0.5))
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+
+    def along(a, axis):
+        ap = np.take(a, np.clip(np.arange(-r, a.shape[axis] + r), 0, a.shape[axis] - 1),
+                     axis=axis)
+        return np.apply_along_axis(lambda v: np.convolve(v, k, mode="valid"), axis, ap)
+
+    return along(along(img.astype(np.float64), 0), 1).astype(np.float32)
+
+
+def perturb_views(views: np.ndarray, level: int, rng: np.random.Generator) -> np.ndarray:
+    """The EVAL_ROBUST severity model on (N, H, W) views in [0, 255], each
+    view on its own: gain, bias, defocus, read and shot noise at `level` (a
+    copy of scripts/make_robust_eval.py:71-87, which imports JAX)."""
+    if level == 0:
+        return views.astype(np.float32)
+    L = float(level)
+    out = []
+    for v in views:
+        g = rng.normal(1.0, 0.03 * L)
+        b = rng.normal(0.0, 4.0 * L)
+        img = v.astype(np.float64) * g + b
+        sigma_blur = max(0.0, 0.4 * L * rng.uniform(0.8, 1.2))
+        img = gauss_blur(np.asarray(img, np.float32), sigma_blur)
+        img = img + rng.normal(0.0, 2.0 * L, img.shape)
+        img = img + rng.standard_normal(img.shape) * (0.25 * L * np.sqrt(np.maximum(img, 0.0)))
+        out.append(np.clip(img, 0.0, 255.0))
+    return np.asarray(out, np.float32)
+
+
+def render_head(h=180, w=240, cu=130.0, cv=80.0, fw=60.0, bright_bg=True, rng=None):
+    """A rendered head scene: a skin oval with eye, brow and mouth features
+    at face width fw over a brighter (or darker) background; (image, oval)
+    (a copy of tests/test_roi.py:141-166)."""
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w), 225.0 if bright_bg else 40.0, np.float32)
+    img += 20.0 * (uu / w)  # background gradient
+    fh = fw * 56.0 / 44.0
+    un = (uu - (cu - fw / 2)) / fw
+    vn = (vv - (cv - fh / 2)) / fh
+    oval = ((un - 0.5) / 0.48) ** 2 + ((vn - 0.52) / 0.52) ** 2 <= 1.0
+    img[oval] = 140.0  # skin
+
+    def blob(bu, bv, su, sv):
+        return np.exp(-0.5 * (((un - bu) / su) ** 2 + ((vn - bv) / sv) ** 2))
+
+    img -= 70.0 * blob(0.30, 0.35, 0.10, 0.05)  # eyes
+    img -= 70.0 * blob(0.70, 0.35, 0.10, 0.05)
+    img -= 40.0 * blob(0.26, 0.24, 0.12, 0.03)  # brows
+    img -= 40.0 * blob(0.74, 0.24, 0.12, 0.03)
+    img -= 55.0 * blob(0.50, 0.78, 0.15, 0.05)  # mouth
+    if rng is not None:
+        img += rng.normal(0, 3.0, img.shape).astype(np.float32)
+    return img, oval
+
+
+SERVED_SETS = 8  # frame-sets through the served path (phase 4e)
+# accuracy records of the JAX package (phase 5e), each with the tolerance the
+# port is held to: about 3x the port's own gap from the record, measured on
+# the CPU (the kernels' plain twins). The records are rounded, and the
+# temporal and fusion ones came from the reference's default routes (the
+# two-view float oracle on the CPU; the r04 array code), not its int16 path.
+# EVAL_ROBUST_r05.json level_0 face; the port on the CPU: 1.0, 0.893218
+FACE_RECORD = {"detection_rate": 1.0, "mean_score": 0.8932}
+FACE_RECORD_TOL = {"detection_rate": 0.0, "mean_score": 2e-4}
+# EVAL_TEMPORAL_r05.json level_1, last frame; the port on the CPU: 0.876441,
+# 0.681285, 0.833913 (per-frame density 0.793517, the record's 0.7925)
+TEMPORAL_RECORD = {"per_frame_epe": 0.8736, "filtered_epe": 0.6788, "filtered_density": 0.8331}
+TEMPORAL_RECORD_TOL = {"per_frame_epe": 0.01, "filtered_epe": 0.01, "filtered_density": 0.003}
+# EVAL_FUSION_r04.json; the port on the CPU: 40606 points, 14.5116, 0.000556797
+FUSION_RECORD = {"points_fused": 40546, "dedup_ratio": 14.53,
+                 "median_rel_depth_err_fused": 0.000534}
+FUSION_RECORD_TOL = {"points_fused": 180, "dedup_ratio": 0.06,
+                     "median_rel_depth_err_fused": 7e-5}
+TEMPORAL_FRAMES = 8  # scripts/make_temporal_eval.py:44
+# the 12 head scenes of scripts/make_robust_eval.py:160-178 (4 geometries x
+# seeds 0-2, both background polarities)
+FACE_CASES = (dict(cu=130.0, cv=80.0, fw=60.0, bright_bg=True),
+              dict(cu=90.0, cv=100.0, fw=80.0, bright_bg=True),
+              dict(cu=150.0, cv=90.0, fw=48.0, bright_bg=False),
+              dict(cu=110.0, cv=70.0, fw=70.0, bright_bg=False))
+
+
+def face_record(torch, device) -> dict:
+    """EVAL_ROBUST_r05.json's face protocol at level 0 (make_robust_eval.py
+    face_metrics): detect_face over the 12 head scenes."""
+    from stereovisionarray_tpu_torch.roi import detect_face
+
+    found, scores = [], []
+    rng = np.random.default_rng(300)
+    for case in FACE_CASES:
+        for seed in range(3):
+            img, _ = render_head(rng=np.random.default_rng(seed), **case)
+            img = perturb_views(img[None], 0, rng)[0]
+            det = detect_face(torch.from_numpy(img).to(device))
+            found.append(bool(det.found))
+            scores.append(float(det.score))
+    return {"detection_rate": float(np.mean(found)), "mean_score": float(np.mean(scores)),
+            "cases": len(found)}
+
+
+def temporal_record(torch, device) -> dict:
+    """EVAL_TEMPORAL_r05.json's level 1 (scripts/make_temporal_eval.py): T = 8
+    independently noised frames of data/eval_scene (seed 101) through the
+    int16 two-view path, filtered with max_diff 1.5; EPE and density of the
+    last frame, per frame and filtered, on the GT-known matchable pixels."""
+    from stereovisionarray_tpu_torch.config import CostConfig, SGMConfig
+    from stereovisionarray_tpu_torch.datasets.middlebury import load_middlebury_pair
+    from stereovisionarray_tpu_torch.models.temporal import temporal_filter_sequence
+    from stereovisionarray_tpu_torch.models.two_view import two_view_disparity
+
+    pair = load_middlebury_pair(str(REPO / "data" / "eval_scene"))
+    gt = pair.gt_disparity
+    matchable = pair.valid_gt & (np.arange(pair.left.shape[1])[None, :] >= np.ceil(gt))
+    cost_cfg = CostConfig(num_disparities=pair.ndisp, census_window=(7, 9))
+    sgm_cfg = SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True, uniqueness=0.95,
+                        lr_max_diff=1.5)
+    rng = np.random.default_rng(101)
+    ds, vs, cs = [], [], []
+    for _ in range(TEMPORAL_FRAMES):
+        left, right = perturb_views(np.stack([pair.left, pair.right]), 1, rng)
+        out = two_view_disparity(torch.from_numpy(left).to(device),
+                                 torch.from_numpy(right).to(device), cost_cfg, sgm_cfg)
+        ds.append(out.disparity)
+        vs.append(out.valid)
+        cs.append(out.confidence)
+    outs = temporal_filter_sequence(torch.stack(ds), torch.stack(vs), torch.stack(cs),
+                                    max_diff=1.5)
+
+    def metrics(d, v):
+        vv = v.cpu().numpy() & matchable
+        err = np.abs(d.cpu().numpy() - gt)[vv]
+        return float(err.mean()), float(vv.mean() / matchable.mean())
+
+    (pf_epe, pf_density), (f_epe, f_density) = metrics(ds[-1], vs[-1]), metrics(
+        outs.disparity[-1], outs.valid[-1])
+    return {"per_frame_epe": pf_epe, "per_frame_density": pf_density, "filtered_epe": f_epe,
+            "filtered_density": f_density}
+
+
+def fusion_config():
+    """scripts/make_fusion_eval.py:48-56: the 5x5 rig at 135x180, 96 planes,
+    CROSS, refine radius 2."""
+    from stereovisionarray_tpu_torch.config import EngineConfig
+
+    return EngineConfig().override(**{"camera.rows": 5, "camera.cols": 5,
+                                      "plane_sweep.num_planes": 96,
+                                      "plane_sweep.topology": "cross", "refine.radius": 2})
+
+
+def fusion_record(torch, device, reconstruct=None) -> dict:
+    """EVAL_FUSION_r04.json's protocol (make_fusion_eval.py): reconstruct_array
+    over every view of the rig, rel_thresh 0.01, min_support 3; the kept
+    points' depth error against each view's exact depth."""
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
+    from stereovisionarray_tpu_torch.models.fusion import reconstruct_array
+
+    res = (135, 180)
+    cams = reference_rig(rows=5, cols=5, spacing=0.05, resolution=res)
+    images, gt = render_camera_array(cams, res)
+    result, depths = (reconstruct or reconstruct_array)(
+        torch.from_numpy(images).to(device), cams.to(device), fusion_config(), rel_thresh=0.01,
+        min_support=3)
+    kept = result.valid.cpu().numpy()
+    rel = np.abs(result.depth.cpu().numpy() - gt) / np.maximum(gt, 1e-9)
+    per_view_valid = int((depths > 0).sum())
+    n_points = int(kept.sum())
+    return {"points_fused": n_points, "per_view_valid_pixels": per_view_valid,
+            "dedup_ratio": per_view_valid / max(n_points, 1),
+            "median_rel_depth_err_fused": float(np.median(rel[kept]))}
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -426,6 +627,285 @@ def cuda_ms(torch, fn, iters, warmup=2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def roi_gate_mask(torch, image, mode):
+    """The use_roi gate of array_depth_pipeline on one reference image."""
+    from stereovisionarray_tpu_torch.roi import detect_face_ellipse, ellipse_mask, face_mask
+
+    if mode == "face":
+        return face_mask(image)
+    roi = detect_face_ellipse(image)
+    return ellipse_mask(tuple(image.shape), roi.center, roi.axes, roi.angle) | ~roi.found
+
+
+def iou(a, b) -> float:
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def served_scene(torch, tmp, device="cuda"):
+    """SERVED_SETS frame-sets of the bench_array rig (four textures, each
+    twice) written as PNGs under `tmp`, one directory a set: (CUDA rig, its
+    config, the set directories, the temporal settings)."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.datasets import save_png
+    from stereovisionarray_tpu_torch.datasets.synthetic import (
+        SceneSpec,
+        reference_rig,
+        render_camera_array,
+    )
+    from stereovisionarray_tpu_torch.models import (
+        TemporalParams,
+        array_baselines,
+        reference_and_sources,
+    )
+
+    rows, cols, h, w, planes = ARRAY_SHAPE
+    cams = reference_rig(rows=rows, cols=cols, spacing=0.05, resolution=(h, w))
+    cfg = config.EngineConfig().override(**{"camera.rows": rows, "camera.cols": cols,
+                                            "plane_sweep.num_planes": planes,
+                                            "plane_sweep.topology": "CROSS"})
+    dirs = []
+    for i in range(SERVED_SETS):
+        if i % 2 == 0:
+            views = render_camera_array(cams, (h, w), SceneSpec(texture_seed=i // 2))[0]
+        d = Path(tmp) / f"set_{i:02d}"
+        d.mkdir()
+        for j, img in enumerate(views):
+            save_png(str(d / f"view_{j:02d}.png"), img, vmin=0.0, vmax=255.0)
+        dirs.append(str(d))
+    ref, src = reference_and_sources(cfg, rows * cols)
+    params = TemporalParams(baseline=array_baselines(cams, ref, src)[1],
+                            focal_px=float(cams.host().fx[ref]), max_diff=1.5)
+    return cams.to(device), cfg, dirs, params
+
+
+def served_path(torch, counted, tag, cams, cfg, dirs, params) -> dict:
+    """Phase 4e: the served path on the card, every output against direct
+    pipeline calls and the port's filter; the wrappers' launch counts."""
+    from stereovisionarray_tpu_torch.datasets import native_available
+    from stereovisionarray_tpu_torch.models import (
+        array_depth_pipeline,
+        frame_sets_from_dirs,
+        stream_depth_maps,
+        stream_depth_maps_chunked,
+        temporal_init,
+        temporal_update,
+    )
+    from stereovisionarray_tpu_torch.models.two_view import disparity_to_depth
+
+    device = cams.fx.device
+    decoder = "native_loader (C++ codec)" if native_available() else "io.read_png (zlib)"
+    stacks = list(frame_sets_from_dirs(dirs))
+    emit({"phase": "served_path", "run": "decode", "decoder": decoder, "sets": len(stacks),
+          "shape": list(stacks[0].shape), "dtype": str(stacks[0].dtype), **tag})
+
+    def serve():
+        served = list(stream_depth_maps(iter(stacks), cams, cfg, depth=2, device=device))
+        chunked = list(stream_depth_maps_chunked(iter(stacks), cams, cfg, depth=2, chunk=4,
+                                                 temporal=params, device=device))
+        return served, chunked
+
+    (served, chunked), launches, entries = counted(serve)
+    needed = ["K8 plane_sweep", "K2/K3 sgm_paths", "K4 extract_maps"]
+    missing = [n for n in needed if launches[n] == 0]
+    if missing:
+        fail(f"the served path never launched {missing}")
+    direct = [array_depth_pipeline(torch.from_numpy(st).to(device), cams, cfg) for st in stacks]
+    state, filtered = temporal_init(tuple(direct[0].refined_disparity.shape), device), []
+    for out in direct:
+        state, tout = temporal_update(state, out.refined_disparity, out.valid,
+                                      out.sweep.confidence, max_diff=params.max_diff,
+                                      max_weight=params.max_weight,
+                                      max_hole_age=params.max_hole_age)
+        filtered.append((tout, torch.where(tout.valid, disparity_to_depth(
+            tout.disparity, params.baseline, params.focal_px), 0.0)))
+    fields = ("depth", "refined_depth", "disparity", "refined_disparity", "valid", "mask")
+    sweep_fields = ("depth", "plane", "cost", "valid", "num_views", "confidence")
+    errs = collections.defaultdict(float)
+
+    def note(name, a, b):
+        errs[name] = max(errs[name], max_err(torch, a, b))
+
+    if [r.index for r in served] != list(range(len(stacks))) or [
+            r.index for r in chunked] != list(range(len(stacks))):
+        fail("the served path's results are out of order or missing")
+    for run, results in (("served", served), ("chunked", chunked)):
+        for r, want in zip(results, direct):
+            for f in fields:
+                note(f"{run}.{f}", getattr(r.output, f), getattr(want, f))
+            for f in sweep_fields:
+                note(f"{run}.sweep.{f}", getattr(r.output.sweep, f), getattr(want.sweep, f))
+    for r, (tout, depth) in zip(chunked, filtered):
+        for f in ("disparity", "valid", "stability", "coasted"):
+            note(f"chunked.temporal.{f}", getattr(r.temporal, f), getattr(tout, f))
+        note("chunked.temporal.depth", r.depth, depth)
+    plain = array_depth_pipeline(torch.from_numpy(stacks[0]).to(device), cams, cfg, backend="torch")
+    for f in fields:
+        note(f"set0_vs_plain.{f}", getattr(direct[0], f), getattr(plain, f))
+    finite = all(bool(torch.isfinite(r.output.refined_depth).all()) for r in served)
+    emit({"phase": "served_path", "run": "stream", "shape": [*stacks[0].shape, cfg.plane_sweep.num_planes],
+          "depth": 2, "chunk": 4, "cameras_on": str(cams.fx.device),
+          "valid_fraction": [round(r.output.valid.float().mean().item(), 6) for r in served],
+          "stability_mean": [round(r.temporal.stability.mean().item(), 6) for r in chunked],
+          "launches": {n: c for n, c in launches.items() if c}, "entry_launches": entries,
+          "max_abs_err_vs_direct": dict(errs), "finite": finite, **tag})
+    if any(e != 0.0 for e in errs.values()) or not finite:
+        fail("the served path differs from direct calls or the plain path, or is not finite")
+
+    # the use_roi gate, both modes, on a served set and on one whose reference
+    # view is a head scene (the landmark branch of roi.face_mask)
+    from stereovisionarray_tpu_torch.models import reference_and_sources
+    from stereovisionarray_tpu_torch.roi import detect_face
+
+    ref = reference_and_sources(cfg, len(stacks[0]))[0]
+    head = stacks[0].copy()
+    h, w = head.shape[1:]
+    head[ref] = render_head(h=h, w=w, cu=0.55 * w, cv=0.45 * h, fw=0.25 * w,
+                            rng=np.random.default_rng(0))[0]
+    for scene, imgs in (("served_set", stacks[0]), ("head_reference", head)):
+        for mode in ("face", "otsu"):
+            x = torch.from_numpy(imgs).to(device)
+            out = array_depth_pipeline(x, cams, cfg, use_roi=True, roi_mode=mode)
+            want = roi_gate_mask(torch, torch.from_numpy(imgs[ref]), mode)
+            got_iou = iou(out.mask, want)
+            line = {"phase": "served_path", "run": f"use_roi_{mode}", "scene": scene,
+                    "mask_fraction": out.mask.float().mean().item(), "iou_vs_cpu_mask": got_iou,
+                    "valid_outside_mask": int((out.valid & ~out.mask).sum()), **tag}
+            if mode == "face":
+                line["face_found"] = bool(detect_face(x[ref]).found)
+            emit(line)
+            if got_iou < 0.99 or line["valid_outside_mask"]:
+                fail(f"use_roi={mode} on {scene}: mask IoU {got_iou} against the CPU's")
+            if scene == "head_reference" and mode == "face" and not line["face_found"]:
+                fail("the face detector missed the head scene on the card")
+    return launches
+
+
+def records(torch, tag, device="cuda") -> None:
+    """Phase 5e: the face, temporal and fusion accuracy records of the JAX
+    package's EVAL files, each against its stated tolerance."""
+    for name, file, fn, want, tol in (
+            ("face", "EVAL_ROBUST_r05.json", face_record, FACE_RECORD, FACE_RECORD_TOL),
+            ("temporal", "EVAL_TEMPORAL_r05.json", temporal_record, TEMPORAL_RECORD,
+             TEMPORAL_RECORD_TOL),
+            ("fusion", "EVAL_FUSION_r04.json", fusion_record, FUSION_RECORD, FUSION_RECORD_TOL)):
+        got = fn(torch, device)
+        off = {m: got[m] - want[m] for m in want if abs(got[m] - want[m]) > tol[m]}
+        emit({"phase": "record", "record": name, "file": file, "metrics": got, "reference": want,
+              "tolerance": tol, **tag})
+        if off:
+            fail(f"the {name} record is off by {off}")
+        if name == "temporal" and not got["filtered_epe"] < got["per_frame_epe"]:
+            fail(f"the temporal filter did not lower the EPE: {got}")
+
+
+def served_timing(torch, tag, cams, cfg, dirs, params) -> None:
+    """Phase 6e: the served loop against a serial loop, the chunked loop, and
+    the new stages' times, with CUDA events or a host clock that ends in a
+    synchronize."""
+    from stereovisionarray_tpu_torch.datasets import load_image_stack, native_available
+    from stereovisionarray_tpu_torch.datasets.io import list_images_sorted
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
+    from stereovisionarray_tpu_torch.models import (
+        array_depth_pipeline,
+        fuse_depth_maps,
+        reconstruct_array,
+        serving,
+        stream_depth_maps,
+        stream_depth_maps_chunked,
+        temporal_init,
+        temporal_update,
+    )
+    from stereovisionarray_tpu_torch.parallel import to_device
+    from stereovisionarray_tpu_torch.roi import face_mask
+
+    device = cams.fx.device
+    paths = [list_images_sorted(d) for d in dirs]
+    decode_s, step_s, done = [], [], []
+
+    def decoded():
+        for p in paths:
+            t0 = time.perf_counter()
+            stack = load_image_stack(p)
+            decode_s.append(time.perf_counter() - t0)
+            yield stack
+
+    real_pipeline = serving.array_depth_pipeline
+
+    def timed_pipeline(*args, **kw):  # host time inside each call; an event after it
+        t0 = time.perf_counter()
+        out = real_pipeline(*args, **kw)
+        step_s.append(time.perf_counter() - t0)
+        done.append(torch.cuda.Event())
+        done[-1].record()
+        return out
+
+    def serial():
+        for stack in decoded():
+            array_depth_pipeline(to_device(stack, device), cams, cfg)
+            torch.cuda.synchronize()
+
+    # the consumer waits for each set's own work (the event after its
+    # pipeline call), not for the set enqueued after it
+    def served():
+        for r in stream_depth_maps(decoded(), cams, cfg, depth=2, device=device):
+            done[r.index].synchronize()
+
+    def chunked():
+        for r in stream_depth_maps_chunked(decoded(), cams, cfg, depth=2, chunk=4,
+                                           temporal=params, device=device):
+            done[r.index].synchronize()
+
+    rows, cols, h, w, _ = ARRAY_SHAPE
+    serial()  # warm: kernels, pinned staging
+    for name, run in (("serial", serial), ("served", served), ("served", served),
+                      ("serial", serial), ("chunked_temporal", chunked)):
+        decode_s.clear()
+        step_s.clear()
+        done.clear()
+        serving.array_depth_pipeline = timed_pipeline
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()  # the last set's filter, where there is one
+            wall = time.perf_counter() - t0
+        finally:
+            serving.array_depth_pipeline = real_pipeline
+        emit({"phase": "timing", "metric": "served_frame_sets_per_s", "run": name,
+              "shape": [len(paths[0]), h, w, cfg.plane_sweep.num_planes], "sets": len(paths),
+              "decoder": "native" if native_available() else "read_png",
+              "frame_sets_per_s": len(paths) / wall, "ms_per_frame_set": wall / len(paths) * 1e3,
+              "decode_ms_per_set": 1e3 * sum(decode_s) / len(paths),
+              "decode_share": sum(decode_s) / wall,
+              "host_ms_in_pipeline_per_set": (1e3 * sum(step_s) / len(step_s)) if step_s else None,
+              **tag})
+
+    rng = np.random.default_rng(11)
+    d = torch.from_numpy(rng.uniform(1, 60, (h, w)).astype(np.float32)).to(device)
+    v = torch.from_numpy(rng.uniform(size=(h, w)) > 0.2).to(device)
+    c = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(device)
+    state = temporal_update(temporal_init((h, w), device), d, v, c)[0]
+    head = torch.from_numpy(render_head(h=h, w=w, cu=0.55 * w, cv=0.45 * h, fw=0.25 * w,
+                                        rng=np.random.default_rng(0))[0]).to(device)
+    fcams = reference_rig(rows=5, cols=5, spacing=0.05, resolution=(135, 180))
+    fimages, fdepths = render_camera_array(fcams, (135, 180))
+    fcams, fimages = fcams.to(device), torch.from_numpy(fimages).to(device)
+    fdepths = torch.from_numpy(fdepths).to(device)
+    for name, shape, fn, iters in (
+            ("temporal_update", [h, w], lambda: temporal_update(state, d, v, c), TIMED_FRAMES),
+            ("face_mask", [h, w], lambda: face_mask(head), ARRAY_FRAMES),
+            ("fuse_depth_maps", [25, 135, 180], lambda: fuse_depth_maps(fcams, fdepths), 3),
+            ("reconstruct_array", [25, 135, 180, 96],
+             lambda: reconstruct_array(fimages, fcams, fusion_config()), 1)):
+        ms = cuda_ms(torch, fn, iters, warmup=1)
+        # one call queued behind a spin: more would fill the device's launch
+        # queue and block the host (fusion's ~2,000 launches a call do alone)
+        dev = device_ms(torch, fn, 1) if name in ("temporal_update", "face_mask") else None
+        emit({"phase": "timing", "metric": f"{name}_ms", "shape": shape, "iters": iters,
+              "ms": ms, "device_ms": dev, **tag})
 
 
 def main() -> None:
@@ -1469,6 +1949,17 @@ def main() -> None:
         emit({"phase": "timing", "library": name, "for": k["name"], "iters": TIMED_FRAMES,
               "ms": k["library"][1], "device_ms": k["library"][2], **tag})
 
+    # ---- 4e-6e. the served capture path --------------------------------------------
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as tmp:
+        scene = served_scene(torch, tmp)
+        served_counts = served_path(torch, counted, tag, *scene)
+        for k in all_kernels:
+            k["served_launches"] = served_counts[k["name"]]
+        records(torch, tag)
+        served_timing(torch, tag, *scene)
+
     # bound: the larger of the bytes the function must move (each input read
     # once, each output written once) over HBM bandwidth and its scalar
     # operations over the float32 peak, at the shape of each timing above.
@@ -1510,11 +2001,12 @@ def main() -> None:
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"],
                        "launches": (k["launches"] + k["array_launches"] + k["cascade_launches"]
-                                    + k["float_launches"]),
+                                    + k["float_launches"] + k["served_launches"]),
                        "launches_by_path": {"two_view": k["launches"],
                                             "array": k["array_launches"],
                                             "cascade": k["cascade_launches"],
-                                            "float": k["float_launches"]},
+                                            "float": k["float_launches"],
+                                            "served": k["served_launches"]},
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                        "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -1,18 +1,32 @@
-"""PNG decoding with the standard library (zlib) and numpy.
+"""Image I/O (twin of the image half of ``stereovisionarray_tpu/datasets/io.py``).
 
-The reference loader reads images through imageio
-(``stereovisionarray_tpu/datasets/middlebury.py``), which the machines this
-port runs on need not have. This decoder covers the PNGs the datasets here
-use: 8-bit, non-interlaced grayscale, RGB or RGBA, any of the five scanline
-filters. Anything else raises.
+The reference reads and writes images through its C++ codec and falls back
+to imageio, which the machines this port runs on need not have. The port
+decodes through its own build of the same codec (``datasets/native_loader``)
+and otherwise with :func:`read_png`, a standard-library (zlib) decoder of the
+PNGs the datasets here use: 8-bit, non-interlaced grayscale, RGB or RGBA, any
+of the five scanline filters (anything else raises); :func:`write_png` is its
+encoder. Both routes give the same pixels: the gray conversion is the codec's
+``0.299 r + 0.587 g + 0.114 b`` in float32, summed left to right.
+:func:`native_available` says which route ran. Directory listings are sorted,
+unlike the reference's directory walk.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from typing import List, Optional
 
 import numpy as np
+
+from stereovisionarray_tpu_torch.datasets import native_loader
+
+__all__ = ["list_images_sorted", "load_image_gray", "load_image_stack", "native_available",
+           "read_png", "save_png", "write_png"]
+
+_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".pgm", ".ppm")
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> samples per pixel
@@ -89,3 +103,92 @@ def read_png(path: str) -> np.ndarray:
         out[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prev, ch)
         prev = out[y]
     return out.reshape(h, w, ch) if ch > 1 else out.reshape(h, w)
+
+
+def write_png(path: str, array: np.ndarray) -> None:
+    """Encode an 8-bit (H, W) gray or (H, W, 3 / 4) RGB(A) array as a PNG:
+    filter 0 on every row, one zlib IDAT chunk."""
+    a = np.ascontiguousarray(array, dtype=np.uint8)
+    if a.ndim == 2:
+        color = 0
+    elif a.ndim == 3 and a.shape[2] in (3, 4):
+        color = {3: 2, 4: 6}[a.shape[2]]
+    else:
+        raise ValueError(f"write_png expects (H, W) or (H, W, 3|4) uint8, got {a.shape}")
+    h, w = a.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)], axis=1)
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def native_available() -> bool:
+    """True when images decode through the C++ codec, False when through
+    :func:`read_png`."""
+    return native_loader.native_available()
+
+
+def list_images_sorted(folder: str) -> List[str]:
+    """Sorted paths of the image files in `folder`."""
+    return [os.path.join(folder, f) for f in sorted(os.listdir(folder))
+            if f.lower().endswith(_IMAGE_EXTS)]
+
+
+def _gray(img: np.ndarray) -> np.ndarray:
+    """float32 luma of a decoded uint8 image, as the C++ codec computes it."""
+    if img.ndim == 2:
+        return img.astype(np.float32)
+    r, g, b = (img[..., i].astype(np.float32) for i in range(3))
+    return np.float32(0.299) * r + np.float32(0.587) * g + np.float32(0.114) * b
+
+
+def load_image_gray(path: str, half_res: bool = False) -> np.ndarray:
+    """An image as float32 grayscale (H, W) in [0, 255], with `half_res`
+    every second row and column of (H // 2, W // 2): the C++ codec where it
+    is built and covers the format, else :func:`read_png`. (The reference's
+    imageio fallback keeps the odd last row and column.)"""
+    if native_loader.native_available():
+        try:
+            return native_loader.decode_image(path, gray=True, half_res=half_res)
+        except ValueError:
+            pass  # a format the codec does not cover (e.g. jpeg)
+    img = _gray(read_png(path))
+    if half_res:  # the codec's top-left pick: odd sizes drop their last row / column
+        h, w = img.shape
+        img = img[:h - h % 2:2, :w - w % 2:2]
+    return img
+
+
+def load_image_stack(paths, half_res: bool = False, threads: int = 4) -> np.ndarray:
+    """Same-shape images as one (N, H, W) float32 stack, decoded on the
+    codec's worker threads where it is built."""
+    if native_loader.native_available():
+        try:
+            return native_loader.load_stack(list(paths), threads=threads, half_res=half_res)
+        except ValueError:
+            pass
+    return np.stack([load_image_gray(p, half_res=half_res) for p in paths])
+
+
+def save_png(path: str, array: np.ndarray, vmin: Optional[float] = None,
+             vmax: Optional[float] = None) -> None:
+    """Save a float array as an 8-bit PNG, normalised to [vmin, vmax] (the
+    array's range by default): gray through the C++ encoder where it is
+    built, else :func:`write_png`."""
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"save_png writes PNG files only: {path!r}")
+    a = np.asarray(array, dtype=np.float32)
+    lo = float(np.nanmin(a)) if vmin is None else vmin
+    hi = float(np.nanmax(a)) if vmax is None else vmax
+    scale = 255.0 / max(hi - lo, 1e-12)
+    u8 = np.clip((a - lo) * scale, 0, 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if u8.ndim == 2 and native_loader.native_available():
+        native_loader.encode_png_gray(path, u8)
+    else:
+        write_png(path, u8)

@@ -1,4 +1,5 @@
-"""Camera model, pair topologies and plane-depth hypotheses of the camera array."""
+"""Camera model, pair topologies, plane-depth hypotheses, point-cloud
+converters and the host-side cloud passes of the camera array."""
 
 from stereovisionarray_tpu_torch.geometry.camera import (  # noqa: F401
     CameraArray,
@@ -12,4 +13,13 @@ from stereovisionarray_tpu_torch.geometry.topology import (  # noqa: F401
     camera_pairs,
     cross_pairs_around,
     grid_positions,
+)
+from stereovisionarray_tpu_torch.geometry.pointcloud import (  # noqa: F401
+    depth_map_to_points,
+    point_cloud_colors,
+    points_to_depth_map,
+)
+from stereovisionarray_tpu_torch.geometry.cloudops import (  # noqa: F401
+    remove_outliers,
+    voxel_downsample,
 )

@@ -6,13 +6,15 @@ camera centre ``C = -R^T t``, pixels ``u = fx * x/z + cx``, ``v = fy * y/z +
 cy`` (u = column, v = row). Every field is a float32 tensor; the rig is the
 system's state, so :func:`camera_array_from_numpy` builds it from the same
 numpy arrays the reference's ``CameraArray`` holds. Host-side static
-computations (shifts, pads, baselines) read :meth:`CameraArray.host`.
+computations (shifts, pads, baselines) read :meth:`CameraArray.host`: a rig
+built from numpy carries its float32 numpy fields beside the tensors, so a rig
+on the card answers them without a copy back, which would wait for the stream.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
-from typing import NamedTuple, Tuple
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,10 +38,14 @@ class HostCameras(NamedTuple):
     t: np.ndarray
 
 
+_FIELDS = HostCameras._fields
+
+
 @dataclass
 class CameraArray:
     """N pinhole cameras as a struct of float32 tensors: fx, fy, cx, cy (N,),
-    R (N, 3, 3) world-to-camera rotation, t (N, 3) translation."""
+    R (N, 3, 3) world-to-camera rotation, t (N, 3) translation. `host_fields`
+    is the same rig as float32 numpy (None: :meth:`host` copies the tensors)."""
 
     fx: torch.Tensor
     fy: torch.Tensor
@@ -47,19 +53,33 @@ class CameraArray:
     cy: torch.Tensor
     R: torch.Tensor
     t: torch.Tensor
+    host_fields: Optional[HostCameras] = field(default=None, repr=False, compare=False)
 
     def __len__(self) -> int:
         return self.fx.shape[0]
 
+    def _tensors(self):
+        return (getattr(self, name) for name in _FIELDS)
+
     def __getitem__(self, idx) -> "CameraArray":
-        """Index every field (an int drops the camera axis)."""
-        return CameraArray(*(getattr(self, f.name)[idx] for f in fields(self)))
+        """Index every field (an int drops the camera axis); the host copy
+        follows an index the host can read (an int, a slice, a list, numpy or
+        a CPU tensor)."""
+        host = None
+        if self.host_fields is not None and not (isinstance(idx, torch.Tensor) and idx.is_cuda):
+            hidx = idx.numpy() if isinstance(idx, torch.Tensor) else idx
+            host = HostCameras(*(a[hidx] for a in self.host_fields))
+        return CameraArray(*(a[idx] for a in self._tensors()), host_fields=host)
 
     def to(self, device) -> "CameraArray":
-        return CameraArray(*(getattr(self, f.name).to(device) for f in fields(self)))
+        return CameraArray(*(a.to(device) for a in self._tensors()), host_fields=self.host_fields)
 
     def host(self) -> HostCameras:
-        return HostCameras(*(getattr(self, f.name).detach().cpu().numpy() for f in fields(self)))
+        """The fields as float32 numpy: the carried copy, else a copy of the
+        tensors (which waits for a CUDA stream)."""
+        if self.host_fields is not None:
+            return self.host_fields
+        return HostCameras(*(a.detach().cpu().numpy() for a in self._tensors()))
 
     @property
     def centers(self) -> torch.Tensor:
@@ -138,8 +158,8 @@ class CameraArray:
 def camera_array_from_numpy(fx, fy, cx, cy, R, t, device=None) -> CameraArray:
     """A rig from the reference ``CameraArray``'s fields as numpy arrays (or
     anything array-like), cast to float32, on `device`."""
-    f32 = lambda x: torch.as_tensor(np.array(x, dtype=np.float32), device=device)  # noqa: E731
-    return CameraArray(f32(fx), f32(fy), f32(cx), f32(cy), f32(R), f32(t))
+    host = HostCameras(*(np.array(x, dtype=np.float32) for x in (fx, fy, cx, cy, R, t)))
+    return CameraArray(*(torch.as_tensor(a, device=device) for a in host), host_fields=host)
 
 
 def make_camera_array(fx, fy, cx, cy, R, t) -> CameraArray:

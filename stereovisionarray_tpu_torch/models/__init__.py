@@ -1,5 +1,6 @@
 """Pipelines built from ``ops``: two-view SGM, the array plane sweep, the
-camera-array depth pipeline and the coarse-to-fine cascades of both."""
+camera-array depth pipeline, the coarse-to-fine cascades of both, the
+temporal filter, multi-view fusion and the streaming serve loop."""
 
 from stereovisionarray_tpu_torch.models.array_pipeline import (  # noqa: F401
     ArrayPipelineOutput,
@@ -28,4 +29,27 @@ from stereovisionarray_tpu_torch.models.two_view import (  # noqa: F401
     disparity_to_depth,
     scaled_penalties,
     two_view_disparity,
+)
+from stereovisionarray_tpu_torch.models.fusion import (  # noqa: F401
+    FusionResult,
+    depth_normals,
+    fuse_depth_maps,
+    fused_point_cloud,
+    reconstruct_array,
+)
+from stereovisionarray_tpu_torch.models.serving import (  # noqa: F401
+    FrameResult,
+    TemporalFrameResult,
+    TemporalParams,
+    frame_sets_from_dirs,
+    stream_depth_maps,
+    stream_depth_maps_chunked,
+    stream_temporal,
+)
+from stereovisionarray_tpu_torch.models.temporal import (  # noqa: F401
+    TemporalOutput,
+    TemporalState,
+    temporal_filter_sequence,
+    temporal_init,
+    temporal_update,
 )

@@ -6,8 +6,9 @@ which adds the hat-sampling pre-warp K9), disparity in the reference-baseline
 scale, multi-view photoconsistency refinement.
 
 Host code selects the reference and source views and derives the static
-shift bound and the baselines from the rig; every numeric stage runs on the
-images' device.
+shift bound and the baselines from the rig (from the rig's host copy, so a
+rig on the card is never read back); every numeric stage, the face ROI of
+``use_roi`` included, runs on the images' device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from stereovisionarray_tpu_torch.models.cascade_sweep import (
 from stereovisionarray_tpu_torch.models.plane_sweep import PlaneSweepOutput, plane_sweep_depth
 from stereovisionarray_tpu_torch.models.two_view import depth_to_disparity, disparity_to_depth
 from stereovisionarray_tpu_torch.ops.refine import multiview_refine
+from stereovisionarray_tpu_torch.roi import detect_face_ellipse, ellipse_mask, face_mask
 
 __all__ = ["ArrayPipelineOutput", "array_baselines", "array_depth_pipeline",
            "reference_and_sources"]
@@ -115,7 +117,11 @@ def array_depth_pipeline(
 
     cameras: the matching CameraArray. cfg: engine config (plane_sweep, sgm
     and refine sections). ref_index: default the grid centre. mask: explicit
-    (H, W) ROI. use_roi / roi_mode: the face-ROI detector, not ported yet.
+    (H, W) ROI, which wins over use_roi. use_roi gates the work to the
+    subject found on the reference view: roi_mode "face" is
+    ``roi.face_mask`` (NCC face, fitted landmarks, the Otsu ellipse where no
+    face is found); any other mode the Otsu ellipse alone (all True where it
+    finds nothing).
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
     tensors), "cuda" (kernels, CUDA tensors only) or "torch" (plain PyTorch
     on any device)."""
@@ -124,11 +130,14 @@ def array_depth_pipeline(
     n, h, w = images.shape
     ref_index, src_indices = reference_and_sources(cfg, n, ref_index)
     if mask is None:
-        if use_roi:
-            raise NotImplementedError(
-                f"use_roi (roi_mode={roi_mode!r}) needs the face-ROI detector of roi/, "
-                "not ported yet (ROADMAP.md queue 1 item 6); pass an explicit mask")
-        mask = torch.ones((h, w), dtype=torch.bool, device=images.device)
+        if use_roi and roi_mode == "face":
+            mask = face_mask(images[ref_index])
+        elif use_roi:
+            roi = detect_face_ellipse(images[ref_index])
+            # unfound -> ungated (all True), as roi.face_mask does
+            mask = ellipse_mask((h, w), roi.center, roi.axes, roi.angle) | ~roi.found
+        else:
+            mask = torch.ones((h, w), dtype=torch.bool, device=images.device)
 
     shift_pad = _shift_warp_pad(cameras, ref_index, src_indices, cfg)
     ps = cfg.plane_sweep

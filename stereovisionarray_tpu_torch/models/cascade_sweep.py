@@ -34,7 +34,7 @@ import torch
 
 from stereovisionarray_tpu_torch.backend import host_to_device
 from stereovisionarray_tpu_torch.config import PlaneSweepConfig, SGMConfig
-from stereovisionarray_tpu_torch.geometry.camera import CameraArray
+from stereovisionarray_tpu_torch.geometry.camera import CameraArray, HostCameras
 from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples
 from stereovisionarray_tpu_torch.models.plane_sweep import (
     PlaneSweepOutput,
@@ -67,8 +67,13 @@ def scale_cameras(cameras: CameraArray, s: int) -> CameraArray:
     compiled division by a constant is."""
     half = (s - 1) / 2.0
     inv = reciprocal_f32(s)
-    return CameraArray(fx=cameras.fx * inv, fy=cameras.fy * inv, cx=(cameras.cx - half) * inv,
-                       cy=(cameras.cy - half) * inv, R=cameras.R, t=cameras.t)
+
+    def scaled(c):  # float32 tensors or numpy, the same arithmetic
+        return c.fx * inv, c.fy * inv, (c.cx - half) * inv, (c.cy - half) * inv, c.R, c.t
+
+    host = cameras.host_fields
+    return CameraArray(*scaled(cameras),
+                       host_fields=None if host is None else HostCameras(*scaled(host)))
 
 
 def area_downsample(imgs: torch.Tensor, s: int) -> torch.Tensor:

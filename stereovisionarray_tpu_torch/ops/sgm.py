@@ -201,21 +201,28 @@ def path_partials(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
     return parts
 
 
-def fma3(c: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """float32 ``fmaf(3, c, acc)``: 3c + acc rounded once. 3c is exact in
-    double and the double sum's own rounding error is recovered (TwoSum); it
-    decides the one case where rounding the double sum to float32 could go
-    the wrong way, a sum that lands exactly halfway between two floats."""
-    a, b = acc.double(), 3.0 * c.double()
-    s = a + b
-    bb = s - a
-    err = (a - (s - bb)) + (b - bb)
+def fmaf(a, b, acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(a, b, acc)``: a * b + acc rounded once. The product of
+    two floats is exact in double and the double sum's own rounding error is
+    recovered (TwoSum); it decides the one case where rounding the double sum
+    to float32 could go the wrong way, a sum that lands exactly halfway
+    between two floats. `a` may be a Python number that is a float32."""
+    a = a.double() if isinstance(a, torch.Tensor) else a
+    x, y = acc.double(), a * b.double()
+    s = x + y
+    yy = s - x
+    err = (x - (s - yy)) + (y - yy)
     r = s.float()
     up = torch.nextafter(r, torch.full_like(r, float("inf")))
     dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
     go_up = (s == (r.double() + up.double()) * 0.5) & (err > 0)
     go_dn = (s == (r.double() + dn.double()) * 0.5) & (err < 0)
     return torch.where(go_up, up, torch.where(go_dn, dn, r))
+
+
+def fma3(c: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(3, c, acc)``: 3c + acc rounded once."""
+    return fmaf(3.0, c, acc)
 
 
 def _plus(a, b):

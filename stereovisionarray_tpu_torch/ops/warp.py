@@ -4,7 +4,8 @@
 reference's operation order; :func:`homography_warp` applies one 3x3
 homography to the pixel grid (the general-rig plane sweep);
 :func:`warp_with_disparity` samples a source along its epipolar direction
-(the refinement's warp). ``splat_depth`` is not ported yet (depth fusion).
+(the refinement's warp); :func:`splat_depth` forward-splats a depth map with
+a min-z scatter, so the nearest surface wins whatever the order of the points.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["bilinear_sample", "homography_warp", "warp_with_disparity"]
+__all__ = ["bilinear_sample", "homography_warp", "splat_depth", "warp_with_disparity"]
 
 
 def bilinear_sample(image: torch.Tensor, coords: torch.Tensor,
@@ -68,3 +69,21 @@ def warp_with_disparity(image: torch.Tensor, disparity: torch.Tensor, baseline_u
     val, inb = bilinear_sample(image, coords, fill=fill)
     ok = inb & (disparity > 0)
     return torch.where(ok, val, fill), ok
+
+
+def splat_depth(depth: torch.Tensor, shift_uv: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Forward-splat an (H, W) depth map by per-pixel shifts (H, W, 2) (u, v),
+    rounded half to even, keeping the smallest depth that lands on a pixel;
+    `fill` where none lands. Pixels with depth <= 0 or landing off the image
+    go to an extra bucket that is dropped."""
+    h, w = depth.shape
+    v, u = pixel_grid(h, w, depth.device, shift_uv.dtype)
+    tu = torch.round(u + shift_uv[..., 0]).to(torch.int64)
+    tv = torch.round(v + shift_uv[..., 1]).to(torch.int64)
+    inb = (tu >= 0) & (tu < w) & (tv >= 0) & (tv < h) & (depth > 0)
+    flat_idx = torch.where(inb, tv * w + tu, h * w)  # out-of-bounds bucket at the end
+    big = torch.finfo(depth.dtype).max
+    src = torch.where(inb, depth, big).reshape(-1)
+    out = torch.full((h * w + 1,), big, dtype=depth.dtype, device=depth.device)
+    out = out.scatter_reduce(0, flat_idx.reshape(-1), src, "amin")[:-1].reshape(h, w)
+    return torch.where(out == big, fill, out)

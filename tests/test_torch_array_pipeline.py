@@ -1,8 +1,8 @@
 """The port's camera-array pipeline as a whole: the golden metrics of
 ``chip_smoke.ARRAY_GOLDEN`` on the CPU, a small rig against the reference's
 kernel route (plane_sweep_depth with backend="pallas_interpret" and the
-refine loop of models/array_pipeline.py:243-273), and the unported options
-raising."""
+refine loop of models/array_pipeline.py:243-273), and the options it
+refuses raising (use_roi: tests/test_torch_roi.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,8 +103,6 @@ def test_small_rig_matches_reference_route():
 
 
 @pytest.mark.parametrize("option,exc,match", [
-    (dict(use_roi=True), NotImplementedError, "roi/"),
-    (dict(use_roi=True, roi_mode="otsu"), NotImplementedError, "roi/"),
     (dict(backend="cuda"), ValueError, "CUDA tensor"),
 ])
 def test_unported_options_raise(option, exc, match):

@@ -25,7 +25,9 @@ on wrapped int16 totals, its generic form (float32, D = 256, LR), and the
 entry point's refusal of a tile or stride it does not take; the cost
 volume's tiled form at the main paths' shapes (C = 256, 128, 64; 8- and
 16-byte runs; the cascade's 5x7 census; images not 16-byte aligned), its
-generic form (47 bytes a pixel), and the entry point's refusals.
+generic form (47 bytes a pixel), and the entry point's refusals; for the
+served capture path, that the array pipeline with the rig's tensors on the
+card, the temporal filter and the face ROI's stages do not wait for the card.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -922,3 +924,92 @@ def test_plane_sweep_kernel_topk_near_its_cap(rng, patch):
     ref, src, shifts = _sweep_inputs(rng, 201, 9, 12, 10, spread=6.0)
     call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, 200, b)  # noqa: E731
     _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("cascade", [False, True])
+def test_array_pipeline_with_cameras_on_the_card_does_not_wait(rng, cascade):
+    """A rig whose tensors live on the card answers the host's questions
+    (shift bound, shift tables, baselines, focal length) from its numpy copy,
+    so array_depth_pipeline returns while a spin runs on the card, with the
+    outputs of the same rig on the host. The refinement is left out
+    (refine.iterations 0): its launches fill the device's launch queue, which
+    blocks the host by itself (ROADMAP.md queue 3)."""
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline
+
+    cams, images, cfg = _array_scene(h=48, w=64, planes=64)
+    cfg = cfg.override(**{"refine.iterations": 0, "plane_sweep.cascade": cascade,
+                          "plane_sweep.cascade_fine_planes": 24})
+    cams_cuda = cams.to("cuda")
+    assert cams_cuda.fx.is_cuda and cams_cuda.host() is cams.host()
+    waited_not, got = _queued_behind_a_spin(lambda: array_depth_pipeline(images, cams_cuda, cfg))
+    assert waited_not
+    want = array_depth_pipeline(images, cams, cfg)
+    for field in ("depth", "refined_depth", "disparity", "valid"):
+        _same(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.parametrize("stage", ["temporal_update", "detect_face_ellipse", "detect_face",
+                                   "fit_landmarks", "face_mask"])
+def test_served_stages_do_not_wait(rng, stage):
+    """The temporal filter and the face ROI select on the device (no host
+    read of a peak index or a found flag): each returns while a spin runs on
+    the card, with the values of the same call on the host. face_mask, whose
+    ~1,400 launches a call are more than the device's launch queue holds
+    (which blocks the host by itself, as the refinement's do: ROADMAP.md
+    queue 3), is held to no synchronizing call instead; detect_face and
+    fit_landmarks, its two halves, take the spin."""
+    from chip_smoke import render_head
+    from stereovisionarray_tpu_torch.models import temporal_init, temporal_update
+    from stereovisionarray_tpu_torch.roi import (
+        detect_face,
+        detect_face_ellipse,
+        face_mask,
+        fit_landmarks,
+    )
+
+    img = render_head(h=180, w=240, rng=rng)[0]
+    d = rng.uniform(1, 60, img.shape).astype(np.float32)
+    v, c = rng.uniform(size=img.shape) > 0.2, rng.uniform(0, 1, img.shape).astype(np.float32)
+    run = {
+        "temporal_update": lambda t: temporal_update(temporal_init(img.shape, t[0].device),
+                                                     *t[1:])[1],
+        "detect_face_ellipse": lambda t: detect_face_ellipse(t[0]),
+        "detect_face": lambda t: detect_face(t[0]),
+        "fit_landmarks": lambda t: (fit_landmarks(t[0], detect_face(t[0], verify_parts=False)),),
+        "face_mask": lambda t: face_mask(t[0]),
+    }[stage]
+    host = [torch.from_numpy(a) for a in (img, d, v, c)]
+    card = [a.cuda() for a in host]
+    want = run(host)
+    if stage == "face_mask":
+        run(card)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run(card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (got.cpu() == want).float().mean() > 0.999
+        return
+    if stage == "fit_landmarks":
+        det = detect_face(card[0], verify_parts=False)
+        waited_not, got = _queued_behind_a_spin(lambda: (fit_landmarks(card[0], det),))
+    else:
+        waited_not, got = _queued_behind_a_spin(lambda: run(card))
+    assert waited_not
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-3)
+
+
+def test_throughput_stream_on_the_card(rng):
+    """Frames copied to the card (pinned, non_blocking) and stepped there
+    come back in order with their values; each output is complete when the
+    stream hands it over."""
+    from stereovisionarray_tpu_torch.parallel import throughput_stream
+
+    frames = [rng.uniform(0, 255, (64, 96)).astype(np.float32) for _ in range(6)]
+    outs, fps = throughput_stream(lambda x: x * 2.0 + 1.0, frames, depth=3)
+    assert fps > 0 and len(outs) == len(frames)
+    for out, frame in zip(outs, frames):
+        assert out.is_cuda
+        _same(out, _cuda(frame) * 2.0 + 1.0)

@@ -146,3 +146,22 @@ def test_warps_match_reference():
     wj, okj = jax_warp.warp_with_disparity(jnp.asarray(img), jnp.asarray(disp), jnp.asarray(b))
     assert np.array_equal(ok.numpy(), np.asarray(okj))
     np.testing.assert_allclose(w_.numpy(), np.asarray(wj), rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("index", [4, [0, 2, 8], np.array([1, 3]), torch.tensor([5, 6]),
+                                   slice(2, 7)])
+def test_rig_carries_its_host_copy(index):
+    """A rig built from numpy answers host() from its float32 numpy copy,
+    through to(), indexing and the cascade's intrinsics scaling, equal to a
+    copy of its tensors."""
+    import dataclasses
+
+    from stereovisionarray_tpu_torch.models.cascade_sweep import scale_cameras
+
+    cams = reference_rig(rows=3, cols=3, resolution=(H, W))
+    assert cams.host_fields is not None and cams.to("cpu").host() is cams.host()
+    for rig in (cams, cams[index], scale_cameras(cams, 4), scale_cameras(cams, 4)[index]):
+        carried = rig.host()
+        copied = dataclasses.replace(rig, host_fields=None).host()
+        for f, a, b in zip(FIELDS, carried, copied):
+            assert a.dtype == np.float32 and np.array_equal(a, b), f

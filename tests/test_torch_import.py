@@ -40,6 +40,10 @@ ARRAY_SLICE_MODULES = (
     "ops.warp", "ops.sweep_cuda", "ops.refine", "models.plane_sweep", "models.array_pipeline",
     # the cascade slice
     "ops.postfilter", "ops.hatsample", "models.cascade", "models.cascade_sweep",
+    # the served capture path
+    "roi.mask", "roi.detect", "roi.face", "models.temporal", "parallel.streaming",
+    "datasets.native_loader", "datasets.io", "models.serving", "geometry.pointcloud",
+    "geometry.cloudops", "models.fusion",
 )
 
 
