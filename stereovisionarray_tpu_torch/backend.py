@@ -13,12 +13,13 @@ launches a kernel. There is no fallback: a kernel that does not build or
 launch raises.
 """
 
+import contextlib
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-__all__ = ["host_to_device", "resolve_backend"]
+__all__ = ["float32_matmuls", "host_to_device", "resolve_backend"]
 
 BACKENDS = ("auto", "cuda", "torch", "xla")
 
@@ -66,3 +67,18 @@ def host_to_device(a, device) -> torch.Tensor:
     else:
         _DEVICE_TABLES.move_to_end(key)
     return hit
+
+
+@contextlib.contextmanager
+def float32_matmuls():
+    """Inside the block, float32 matrix products run in full float32 whatever
+    the caller set (``torch.backends.cuda.matmul.allow_tf32`` or
+    ``torch.set_float32_matmul_precision("high")`` would run them in TF32, as
+    the reference's ``Precision.HIGHEST`` never does); the caller's setting
+    is restored after."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -1,6 +1,7 @@
-"""Disparity and camera-array depth accuracy metrics."""
+"""Disparity, camera-array depth and calibration accuracy metrics."""
 
 from stereovisionarray_tpu_torch.evaluation.metrics import (  # noqa: F401
+    absolute_trajectory_error,
     array_depth_metrics,
     bad_pixel_ratio,
     cascade_depth_metrics,

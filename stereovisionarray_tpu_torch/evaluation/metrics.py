@@ -1,5 +1,6 @@
-"""Middlebury bad-τ ratio and end-point error (twin of
-``stereovisionarray_tpu/evaluation/metrics.py``); float32 sums, mask-aware."""
+"""Middlebury bad-τ ratio, end-point error and the trajectory error of a
+calibration (twin of ``stereovisionarray_tpu/evaluation/metrics.py``);
+float32 sums, mask-aware."""
 
 from __future__ import annotations
 
@@ -88,3 +89,26 @@ def cascade_depth_metrics(depth, valid, gt, border: int = 8) -> dict:
     rel = np.abs(depth[sel] - gt[sel]) / gt[sel]
     return {"valid_inner": float(sel.sum() / inner.sum()), "median_rel": float(np.median(rel)),
             "mean_rel": float(rel.mean()), "bad2pct": float((rel > 0.02).mean())}
+
+
+def absolute_trajectory_error(centers_est: torch.Tensor, centers_gt: torch.Tensor,
+                              align: bool = True, align_scale: bool = False) -> torch.Tensor:
+    """RMSE of camera centres (N, 3) after an optional Umeyama alignment:
+    rotation and translation, and with `align_scale` the global scale too
+    (monocular BA cannot observe scale)."""
+    if not align:
+        aligned = centers_est
+    else:
+        mu_e, mu_g = centers_est.mean(dim=0), centers_gt.mean(dim=0)
+        e, g = centers_est - mu_e, centers_gt - mu_g
+        cov = torch.sum(e[:, :, None] * g[:, None, :], dim=0)  # e^T g, elementwise (no TF32)
+        u, s, vt = torch.linalg.svd(cov)
+        vu = torch.sum(vt.T[:, :, None] * u.T[None, :, :], dim=1)
+        sign = torch.sign(torch.linalg.det(vu))
+        D = torch.stack([torch.ones_like(sign), torch.ones_like(sign), sign])
+        R = torch.sum((vt.T * D)[:, :, None] * u.T[None, :, :], dim=1)  # V D U^T
+        scale = 1.0
+        if align_scale:
+            scale = torch.sum(s * D) / torch.clamp(torch.sum(e * e), min=1e-12)
+        aligned = scale * torch.sum(R[None] * e[:, None, :], dim=-1) + mu_g
+    return torch.sqrt(torch.mean(torch.sum((aligned - centers_gt) ** 2, dim=-1)))

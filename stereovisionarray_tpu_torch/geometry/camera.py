@@ -19,9 +19,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from stereovisionarray_tpu_torch.geometry.lie import matmul3, matvec3
+
 __all__ = [
     "CameraArray",
     "camera_array_from_numpy",
+    "look_at_rotation",
     "make_camera_array",
     "translation_only_array",
 ]
@@ -130,6 +133,46 @@ class CameraArray:
         y = (uv[..., 1] - cy) / fy * depth
         return self.cam_to_world(torch.stack([x, y, depth], dim=-1))
 
+    # the SfM helpers below write their 3x3 products out elementwise
+    # (geometry.lie.matvec3 / matmul3): no TF32 GEMM can reach them
+    def pixel_rays(self, uv: torch.Tensor) -> torch.Tensor:
+        """Unit world-frame ray directions of pixels (..., 2)."""
+        fx, fy, cx, cy = self._bcast_intrinsics(uv[..., 0])
+        d = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy,
+                         torch.ones_like(uv[..., 0])], dim=-1)
+        d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+        Rt = self.R.transpose(-1, -2)
+        if self.R.dim() == 3:  # (N, 3, 3) against (N, ..., 3) rays
+            Rt = Rt.reshape(Rt.shape[0], *[1] * (d.dim() - 2), 3, 3)
+        return matvec3(Rt, d)
+
+    # one point per camera (the observation lists of sfm/)
+    def world_to_cam_each(self, points: torch.Tensor) -> torch.Tensor:
+        """points (N, 3), one per camera of this (N,) rig -> camera frame (N, 3)."""
+        return matvec3(self.R, points) + self.t
+
+    def project_each(self, points: torch.Tensor, eps: float = 1e-9):
+        """points (N, 3), one per camera -> (uv (N, 2), depth (N,))."""
+        pc = self.world_to_cam_each(points)
+        z = pc[..., 2]
+        small = torch.where(z < 0, -eps, eps).to(z.dtype)
+        inv_z = 1.0 / torch.where(z.abs() < eps, small, z)
+        u = self.fx * pc[..., 0] * inv_z + self.cx
+        v = self.fy * pc[..., 1] * inv_z + self.cy
+        return torch.stack([u, v], dim=-1), z
+
+    def rays_each(self, uv: torch.Tensor) -> torch.Tensor:
+        """uv (N, 2), one per camera -> unit world rays (N, 3)."""
+        d = torch.stack([(uv[..., 0] - self.cx) / self.fx, (uv[..., 1] - self.cy) / self.fy,
+                         torch.ones_like(uv[..., 0])], dim=-1)
+        d = d / torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+        return matvec3(self.R.transpose(-1, -2), d)
+
+    def relative_pose(self, i, j) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pose of camera j relative to camera i: x_j = R_rel @ x_i + t_rel."""
+        R_rel = matmul3(self.R[j], self.R[i].transpose(-1, -2))
+        return R_rel, self.t[j] - matvec3(R_rel, self.t[i])
+
     def _bcast_intrinsics(self, like: torch.Tensor):
         if self.fx.dim() == 0:
             return self.fx, self.fy, self.cx, self.cy
@@ -179,3 +222,16 @@ def translation_only_array(focal_length: float, positions, pixel_size: float,
     R = np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3))
     return camera_array_from_numpy(f_pix, f_pix, full(w / 2.0), full(h / 2.0), R, -pos,
                                    device=device)
+
+
+def look_at_rotation(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
+    """World-to-camera rotation (3, 3) float32 of a camera at `eye` looking at
+    `target`: camera +z towards the target, +y roughly along `up`."""
+    eye, target, up = (torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+                       for a in (eye, target, up))
+    fwd = target - eye
+    fwd = fwd / torch.sqrt(torch.sum(fwd * fwd))
+    right = torch.linalg.cross(up, fwd)
+    right = right / torch.sqrt(torch.sum(right * right))
+    new_up = torch.linalg.cross(fwd, right)
+    return torch.stack([right, new_up, fwd])  # rows: the camera axes in world coordinates

@@ -1,12 +1,18 @@
 """Pipelines built from ``ops``: two-view SGM, the array plane sweep, the
 camera-array depth pipeline, the coarse-to-fine cascades of both, the
-temporal filter, multi-view fusion and the streaming serve loop."""
+temporal filter, multi-view fusion, the streaming serve loop and the array's
+calibration."""
 
 from stereovisionarray_tpu_torch.models.array_pipeline import (  # noqa: F401
     ArrayPipelineOutput,
     array_baselines,
     array_depth_pipeline,
     reference_and_sources,
+)
+from stereovisionarray_tpu_torch.models.calibration import (  # noqa: F401
+    CalibrationResult,
+    build_tracks,
+    calibrate_array,
 )
 from stereovisionarray_tpu_torch.models.cascade import (  # noqa: F401
     SMOOTH_R,

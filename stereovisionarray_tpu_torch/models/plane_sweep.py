@@ -199,8 +199,12 @@ def _shift_chain_volume(ref, src_images, shifts, cfg: PlaneSweepConfig, shift_pa
 
 def _homography_volume(ref, src_images, cameras, ref_index, src, depths,
                        cfg: PlaneSweepConfig):
-    """The per-plane chain over the fronto-plane homographies of a general rig."""
-    H_all = cameras.to(ref.device).fronto_plane_homography(ref_index, src, depths)  # (S, D, 3, 3)
+    """The per-plane chain over the fronto-plane homographies of a general rig.
+    The (S, D, 3, 3) homographies are computed from the rig's host copy on
+    the CPU and handed to the images' device (pinned, ``non_blocking``): a
+    calibrated rig on the card is never read back."""
+    host = CameraArray(*(torch.from_numpy(a) for a in cameras.host()))
+    H_all = host_to_device(host.fronto_plane_homography(ref_index, src, depths), ref.device)
     ref_census = census_transform(ref, (cfg.patch, cfg.patch)) if cfg.cost == "census" else None
     fused, nviews = [], []
     for d in range(H_all.shape[1]):
@@ -248,7 +252,7 @@ def plane_sweep_volume(
         raise ValueError("explicit shifts require the translation fast path (shift_pad > 0)")
 
     if shift_pad <= 0:
-        vol, nv = _homography_volume(ref, src_images, cameras, ref_index, src, depths_t, cfg)
+        vol, nv = _homography_volume(ref, src_images, cameras, ref_index, src, depths, cfg)
         return vol, nv, depths_t
 
     if shifts is None:

@@ -19,15 +19,20 @@ __all__ = ["bilinear_sample", "homography_warp", "splat_depth", "warp_with_dispa
 
 def bilinear_sample(image: torch.Tensor, coords: torch.Tensor,
                     fill: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample (H, W) `image` at float coords (..., 2) in uv order (u = column).
+    """Sample (H, W) `image` at float coords (..., 2) in uv order (u = column);
+    (B, H, W) images take (B, ..., 2) coords, each image its own.
     Returns (values (...), in_bounds (...)); out-of-bounds samples get `fill`."""
     h, w = image.shape[-2:]
     u, v = coords[..., 0], coords[..., 1]
     u0, v0 = torch.floor(u), torch.floor(v)
     fu, fv = u - u0, v - v0
     u0i, v0i = u0.to(torch.int64), v0.to(torch.int64)
+    if image.dim() == 3:
+        b = torch.arange(image.shape[0], device=image.device).reshape(-1, *[1] * (u.dim() - 1))
 
     def gather(yi, xi):
+        if image.dim() == 3:
+            return image[b, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
         return image[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
 
     top = gather(v0i, u0i) * (1.0 - fu) + gather(v0i, u0i + 1) * fu

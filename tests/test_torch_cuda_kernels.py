@@ -27,7 +27,11 @@ volume's tiled form at the main paths' shapes (C = 256, 128, 64; 8- and
 16-byte runs; the cascade's 5x7 census; images not 16-byte aligned), its
 generic form (47 bytes a pixel), and the entry point's refusals; for the
 served capture path, that the array pipeline with the rig's tensors on the
-card, the temporal filter and the face ROI's stages do not wait for the card.
+card, the temporal filter and the face ROI's stages do not wait for the card;
+for SfM, that calibrate_array makes no synchronizing call but its final copy,
+gives bit-identical runs and ignores TF32, and that the calibrated rig's
+depth (no synchronizing call; behind a spin on two views) and a rectified
+verged pair equal their plain routes.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -1013,3 +1017,174 @@ def test_throughput_stream_on_the_card(rng):
     for out, frame in zip(outs, frames):
         assert out.is_cuda
         _same(out, _cuda(frame) * 2.0 + 1.0)
+
+
+# ---- SfM and calibration: paths (a), (b) and (c) on the card ---------------------------------
+
+@pytest.fixture(scope="module")
+def calibrated():
+    """tests/test_torch_calibration.py's lensed 3x3 rig at 180x240 (k1 = -0.4,
+    a 5 mm guess) on the card: (lensed views, guess, config, calibrate())."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereovisionarray_tpu_torch.config import EngineConfig
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
+    from stereovisionarray_tpu_torch.geometry import Distortion, camera_array_from_numpy, distort_image
+    from stereovisionarray_tpu_torch.models import calibrate_array
+
+    rig = reference_rig(rows=3, cols=3, spacing=0.05, origin=(-0.05, -0.05), resolution=(180, 240))
+    lensed = distort_image(_cuda(render_camera_array(rig, (180, 240))[0]), rig.to("cuda"),
+                           Distortion(k1=-0.4, k2=0.03))[0]
+    host = rig.host()
+    t_bad = host.t.copy()
+    t_bad[1:] += np.random.default_rng(11).normal(0, 0.005, t_bad[1:].shape).astype(np.float32)
+    init = camera_array_from_numpy(host.fx, host.fy, host.cx, host.cy, host.R, t_bad, device="cuda")
+    cfg = EngineConfig().override(**{"camera.rows": 3, "camera.cols": 3, "sfm.ba_iterations": 30,
+                                     "plane_sweep.num_planes": 32, "plane_sweep.topology": "CROSS"})
+
+    def calibrate():
+        return calibrate_array(lensed, init, 4, cfg.sfm, rounds=2, estimate_distortion=True)
+
+    calibrate()  # warm: the index tables reach the card once
+    torch.cuda.synchronize()
+    return lensed, init, cfg, calibrate
+
+
+def _calibration_fields(out):
+    return (out.cameras.R, out.cameras.t, out.points, out.cost, out.num_obs, out.inlier_reproj,
+            *out.distortion)
+
+
+def test_calibrate_array_makes_no_synchronizing_call(calibrated):
+    """The whole calibration is enqueued without a host read; the one
+    synchronizing call is the final copy of the cameras to their host copy."""
+    import warnings
+
+    calibrate = calibrated[3]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = calibrate()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    assert out.cameras.fx.is_cuda and out.cameras.host_fields is not None
+    np.testing.assert_array_equal(out.cameras.host_fields.R, out.cameras.R.cpu().numpy())
+
+
+def test_calibrate_array_runs_are_bit_identical(calibrated):
+    """Segment sums in a fixed order (no atomics): two runs agree bit for bit,
+    cameras, points and the cost trajectory."""
+    calibrate = calibrated[3]
+    for a, b in zip(_calibration_fields(calibrate()), _calibration_fields(calibrate())):
+        _same(a, b)
+
+
+def test_calibrate_array_ignores_tf32(calibrated):
+    """A caller's TF32 settings do not reach the calibration's products."""
+    calibrate = calibrated[3]
+    want = calibrate()
+    prev_prec, prev_tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = calibrate()
+        assert torch.get_float32_matmul_precision() == "high"  # the caller's setting restored
+    finally:
+        torch.set_float32_matmul_precision(prev_prec)
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    for a, b in zip(_calibration_fields(got), _calibration_fields(want)):
+        _same(a, b)
+
+
+def _undistorted(calibrated, out):
+    from stereovisionarray_tpu_torch.geometry import Distortion, undistort_image
+
+    return undistort_image(calibrated[0], out.cameras, Distortion(*out.distortion))[0]
+
+
+def test_calibrated_depth_makes_no_synchronizing_call_and_matches_plain(calibrated, launched):
+    """Path (b) on the calibrated rig (a general rig: the homography chain,
+    then K2/K3 and K4): no synchronizing call (its chain of per-plane warps
+    enqueues more launches than the device's launch queue holds, so a spin
+    cannot tell), every output equal to backend="torch"."""
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline
+
+    lensed, _, cfg, calibrate = calibrated
+    out = calibrate()
+    views = _undistorted(calibrated, out)
+    array_depth_pipeline(views, out.cameras, cfg)
+    torch.cuda.synchronize()
+    launched.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = array_depth_pipeline(views, out.cameras, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {"svt_sgm_paths", "svt_extract_maps"} <= set(launched)
+    assert "svt_plane_sweep" not in launched
+    want = array_depth_pipeline(views, out.cameras, cfg, backend="torch")
+    for field in ("depth", "refined_depth", "disparity", "refined_disparity", "valid"):
+        _same(getattr(got, field), getattr(want, field))
+
+
+def test_calibrated_depth_does_not_wait(calibrated):
+    """Path (b) on two views of the calibrated rig (one source, 4 planes, no
+    refinement: launches the device's queue holds) returns while a spin
+    runs on the card: the rig answers the host from its numpy copy."""
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline
+
+    out = calibrated[3]()
+    views = _undistorted(calibrated, out)[[3, 4]].contiguous()
+    cams = out.cameras[[3, 4]]
+    assert cams.host_fields is not None and cams.fx.is_cuda
+    cfg = calibrated[2].override(**{"camera.rows": 1, "camera.cols": 2,
+                                    "plane_sweep.num_planes": 4, "refine.iterations": 0})
+    waited_not, got = _queued_behind_a_spin(lambda: array_depth_pipeline(views, cams, cfg))
+    assert waited_not
+    want = array_depth_pipeline(views, cams, cfg, backend="torch")
+    for field in ("depth", "disparity", "valid"):
+        _same(getattr(got, field), getattr(want, field))
+
+
+def test_rectified_two_view_matches_plain(rng, launched):
+    """Path (c) at 135x192, D = 32: a verged pair rectified, two-view SGM
+    (K1, K2/K3, K4 with the fused LR check) and depth, equal to
+    backend="torch"."""
+    from stereovisionarray_tpu_torch.datasets.synthetic import SceneSpec, render_view
+    from stereovisionarray_tpu_torch.geometry import (
+        camera_array_from_numpy,
+        look_at_rotation,
+        rectified_disparity_to_depth,
+        rectify_images,
+        rectify_pair,
+    )
+
+    h, w = 135, 192
+    f = 0.05 / (0.036 / w)
+    eyes = np.array([[-0.0225, 0.0, -0.75], [0.0225, 0.0, -0.75]])
+    R = np.stack([look_at_rotation(e, (0.0, 0.0, 0.25)).numpy() for e in eyes])
+    t = np.einsum("nij,nj->ni", R, -eyes).astype(np.float32)
+    cams = camera_array_from_numpy(np.full(2, f), np.full(2, f), np.full(2, w / 2.0),
+                                   np.full(2, h / 2.0), R, t, device="cuda")
+    left, right = (_cuda(render_view(cams, i, (h, w), SceneSpec())[0]) for i in (0, 1))
+    cfg = (CostConfig(num_disparities=32, census_window=(7, 9), dtype="int8"),
+           SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True))
+
+    def run(backend):
+        rect = rectify_pair(cams, 0, 1)
+        lw, lv, rw, _ = rectify_images(left, right, rect)
+        out = two_view_disparity(lw, rw, *cfg, backend=backend)
+        return out, rectified_disparity_to_depth(out.disparity, rect), lv
+
+    launched.clear()
+    got = run("auto")
+    assert {"svt_cost_volume", "svt_sgm_paths", "svt_extract_maps"} <= set(launched)
+    want = run("torch")
+    for field in ("disparity", "valid", "cost", "confidence"):
+        _same(getattr(got[0], field), getattr(want[0], field))
+    _same(got[1], want[1])
+    _same(got[2], want[2])
+    assert got[0].valid.float().mean() > 0.5

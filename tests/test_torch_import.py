@@ -44,6 +44,10 @@ ARRAY_SLICE_MODULES = (
     "roi.mask", "roi.detect", "roi.face", "models.temporal", "parallel.streaming",
     "datasets.native_loader", "datasets.io", "models.serving", "geometry.pointcloud",
     "geometry.cloudops", "models.fusion",
+    # SfM and calibration
+    "geometry.lie", "geometry.distortion", "geometry.rectify", "evaluation.metrics",
+    "sfm.features", "sfm.matching", "sfm.refine", "sfm.segments", "sfm.triangulate", "sfm.ba",
+    "sfm.pose_graph", "models.calibration",
 )
 
 
