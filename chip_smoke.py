@@ -158,6 +158,25 @@ SfM and calibration add, after the served phases:
     undistortion; path (b) per frame-set beside the true rig's translation
     route (K8); path (c) per frame (whole, and with rectify_pair computed once
     per rig) beside the plain two-view frame.
+The command line adds, after the SfM phases:
+ 4g. every subcommand through cli.main in-process, counted: render of the
+    default 5x5 rig at 270x360; depth at bench_array.py's CROSS config, at
+    the to_center default and with --cascade; two-view on data/eval_scene at
+    the fixture's config in int16 and int8, on a bench-shaped 540x768 pair
+    (8-bit PNGs, D=64, int8) and with --cascade at perf_cascade.py's
+    configuration; evaluate of the fixture runs; calibrate
+    --estimate-distortion of the 25 views; reconstruct of all 25 at CROSS;
+    serve of phase 4e's eight frame-sets with --chunk 4 --temporal; inspect.
+    Every .npz array, PNG pixel and PLY byte equals the port's functions
+    called directly with backend="torch" on the images the CLI decoded, every
+    printed key set is CLI_KEYS', K8, K2/K3 and K4 launch on depth,
+    reconstruct and serve, K1-K4 on two-view and K9 on both cascades; then
+    `python -m stereovisionarray_tpu_torch depth` in its own process writes
+    the in-process CROSS run's depth.npz and cloud.ply;
+ 5g. the fixture's evaluate numbers against GOLDEN to 1e-6 (the CLI decodes
+    the fixture's gray PNGs to phase 5's images);
+ 6g. each subcommand's wall beside the direct call it wraps (the CLI's own
+    decode, copies and writes), and the `python -m` process's wall.
 The line before the last lists every kernel with its launches, parity error,
 wrapper time, device time, plain time, bound (the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
@@ -592,6 +611,26 @@ SFM_RECORD_TOL = {"ate_mm_initial": 5e-4, "ate_mm_calibrated": 0.006, "observati
                   "tracks": 0, "inlier_reproj_px": 0.0135, "outlier_fraction": 1e-4,
                   "k1": 1e-4}
 SFM_ATE_CEILING_MM = 0.5
+
+# The CLI (phases 4g-6g). The key set of every JSON line a subcommand prints,
+# as the JAX package's CLI prints it for the same run (depth with ground truth
+# found, calibrate with --estimate-distortion, evaluate at its default taus,
+# inspect of depth.npz); tests/test_torch_cli_parity.py holds these to the
+# reference.
+CLI_KEYS = {
+    "render": ("output", "rendered", "resolution"),
+    "depth": ("bad_2pct_depth", "mean_abs_err", "median_rel_err", "output", "points",
+              "valid_fraction"),
+    "reconstruct": ("bad_2pct_depth", "mean_support", "median_rel_err", "output", "points",
+                    "raw_points", "views"),
+    "two-view": ("mean_confidence", "output", "valid_fraction"),
+    "calibrate": ("inlier_reproj_px", "inlier_threshold_px", "k1", "k2", "mean_reproj_px",
+                  "num_obs", "outlier_fraction", "output"),
+    "serve": ("frames", "frames_per_s", "output", "wall_s"),
+    "evaluate": ("bad_0.5", "bad_1.0", "bad_2.0", "epe", "gt_key", "key", "masked_mean_err",
+                 "valid_fraction"),
+    "inspect": ("__meta__", "confidence", "depth", "disparity", "valid"),
+}
 # path (b): bench_array.py's CROSS config on the calibrated rig
 CALIBRATED_DEPTH_CFG = {"camera.rows": 5, "camera.cols": 5, "plane_sweep.num_planes": 128,
                         "plane_sweep.topology": "CROSS"}
@@ -1278,6 +1317,492 @@ def calibration_timing(torch, tag, state, bench_cfg, bench_pair) -> None:
                                                                              *bench_cfg))):
         emit({"phase": "timing", "metric": f"{name}_ms", "shape": list(VERGED_SHAPE),
               "iters": TIMED_FRAMES, "ms": cuda_ms(torch, fn, TIMED_FRAMES), **tag})
+
+
+# ---------------------------------------------------------------------------
+# The CLI (phases 4g-6g): cli.main(argv) in-process, each artifact against the
+# port's functions called directly on the images the CLI decoded
+CLI_ARRAY = ["--set", "plane_sweep.topology=CROSS"]  # bench_array.py: 5x5, 270x360, 128 planes
+# phase 5's fixture: D=64, census 7x9, p1 8, p2 96, 8 paths, adaptive P2,
+# uniqueness 0.95 (the defaults) and LR 1.5
+CLI_FIXTURE = ["--set", "cost.num_disparities=64", "--set", "sgm.lr_max_diff=1.5"]
+CLI_BENCH = ["--set", f"cost.num_disparities={BENCH_SHAPE[2]}", "--set", "cost.dtype=int8"]
+# scripts/perf_cascade.py's configuration (two_view_cascade_config)
+CLI_CASCADE = ["--set", f"cost.num_disparities={CASCADE_SHAPE[2]}", "--set", "cost.dtype=int8",
+               "--cascade", "--coarse-factor", "4", "--fine-disparities", "24",
+               "--band-step", "8"]
+ARRAY_PATH = ["K8 plane_sweep", "K2/K3 sgm_paths", "K4 extract_maps"]
+TWO_VIEW_PATH = ["K1 cost_volume", "K2/K3 sgm_paths", "K4 extract_maps", "K5 lr_check fused"]
+
+
+def cli_config(argv):
+    """The EngineConfig a CLI command line resolves to."""
+    from stereovisionarray_tpu_torch import cli
+
+    return cli.load_config(cli.build_parser().parse_args(argv))
+
+
+def cli_run(torch, counted, argv) -> dict:
+    """cli.main(argv) in-process with every launch count set to 0 just
+    before: its printed JSON line, the wrappers' counts, the C entry points,
+    and the host wall and CUDA-event ms of the call."""
+    import contextlib
+    import io
+
+    from stereovisionarray_tpu_torch import cli
+
+    buf = io.StringIO()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        end.record()
+        return rc
+
+    t0 = time.perf_counter()
+    rc, launches, entries = counted(run)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        fail(f"cli {argv[0]} returned {rc}")
+    text = buf.getvalue().strip()
+    return {"json": json.loads(text.splitlines()[-1]), "launches": launches, "entries": entries,
+            "wall_ms": wall_ms, "events_ms": start.elapsed_time(end)}
+
+
+class ArtifactCheck:
+    """Each artifact of a CLI run against the same artifact made from the
+    port's direct outputs: max |difference| per array, PNG and PLY (0: equal)."""
+
+    def __init__(self, torch, scratch: Path):
+        self.torch, self.scratch, self.errs = torch, scratch, {}
+
+    def _note(self, name, err):
+        self.errs[name] = max(self.errs.get(name, 0.0), err)
+
+    def arrays(self, path, want: dict, tag=""):
+        from stereovisionarray_tpu_torch.datasets import load_array
+
+        got, _ = load_array(str(path))
+        if sorted(got) != sorted(want):
+            fail(f"{path} holds {sorted(got)}, not {sorted(want)}")
+        for k, v in want.items():
+            v = v.detach().cpu().numpy() if self.torch.is_tensor(v) else np.asarray(v)
+            g = got[k]
+            if g.dtype != v.dtype or g.shape != v.shape:
+                fail(f"{path}[{k}] is {g.dtype} {g.shape}, not {v.dtype} {v.shape}")
+            same = np.array_equal(g, v, equal_nan=bool(np.issubdtype(v.dtype, np.floating)))
+            self._note(f"{tag}{Path(path).name}:{k}", 0.0 if same else float(
+                np.nanmax(np.abs(g.astype(np.float64) - v.astype(np.float64)))))
+
+    def png(self, path, array, tag="", **kw):
+        from stereovisionarray_tpu_torch.datasets import read_png, save_png
+
+        a = array.detach().cpu().numpy() if self.torch.is_tensor(array) else array
+        want = self.scratch / "want.png"
+        save_png(str(want), a, **kw)
+        g, w = read_png(str(path)).astype(np.int32), read_png(str(want)).astype(np.int32)
+        self._note(f"{tag}{Path(path).name}", float(np.abs(g - w).max()) if g.shape == w.shape
+                   else float("inf"))
+
+    def ply(self, path, *args, tag="", **kw):
+        from stereovisionarray_tpu_torch.datasets import save_ply
+
+        want = self.scratch / "want.ply"
+        n = save_ply(str(want), *args, **kw)
+        self._note(f"{tag}{Path(path).name}", 0.0 if Path(path).read_bytes() == want.read_bytes()
+                   else 1.0)
+        return n
+
+    def value(self, name, got, want):
+        self._note(name, 0.0 if got == want else abs(float(got) - float(want)))
+
+    def same(self, name, ok: bool):
+        self._note(name, 0.0 if ok else 1.0)
+
+
+def cli_depth_direct(torch, images, cams, cfg, backend="torch"):
+    """What `depth` computes, called directly: (pipeline output, points,
+    point validity, colors) of the grid centre."""
+    from stereovisionarray_tpu_torch.geometry import depth_map_to_points, point_cloud_colors
+    from stereovisionarray_tpu_torch.models import array_depth_pipeline
+
+    out = array_depth_pipeline(images, cams, cfg, backend=backend)
+    ref = (cfg.camera.rows // 2) * cfg.camera.cols + cfg.camera.cols // 2
+    pts, pvalid = depth_map_to_points(cams[ref], out.refined_depth, mask=out.valid)
+    return out, pts, pvalid, point_cloud_colors(images[ref], pvalid), ref
+
+
+def cli_paths(torch, counted, tag, scratch: Path, served_dirs) -> dict:
+    """Phase 4g: every subcommand through cli.main on the card, each
+    artifact bit-exact to the port's direct calls with backend="torch", each
+    printed key set CLI_KEYS'; 5g: the fixture's `evaluate` against GOLDEN.
+    Returns the state the timing phase reuses."""
+    from stereovisionarray_tpu_torch import cli
+    from stereovisionarray_tpu_torch.datasets import (
+        list_images_sorted,
+        load_array,
+        load_image_gray,
+        load_image_stack,
+        read_pfm,
+        save_array,
+        write_png,
+    )
+    from stereovisionarray_tpu_torch.datasets.middlebury import load_middlebury_pair
+    from stereovisionarray_tpu_torch.evaluation import (
+        bad_pixel_ratio,
+        end_point_error,
+        masked_mean_error,
+    )
+    from stereovisionarray_tpu_torch.models import (
+        array_baselines,
+        array_depth_pipeline,
+        calibrate_array,
+        cascade_two_view_disparity,
+        reference_and_sources,
+        temporal_init,
+        temporal_update,
+        two_view_disparity,
+    )
+    from stereovisionarray_tpu_torch.models.fusion import (
+        depth_normals,
+        fused_point_cloud,
+        reconstruct_array,
+    )
+    from stereovisionarray_tpu_torch.models.two_view import disparity_to_depth
+
+    check = ArtifactCheck(torch, scratch)
+    runs, totals = {}, collections.Counter()
+
+    def run(name, argv, needed=()):
+        r = cli_run(torch, counted, argv)
+        runs[name] = r
+        totals.update(r["launches"])
+        command = argv[0]
+        if command in CLI_KEYS and sorted(r["json"]) != sorted(CLI_KEYS[command]):
+            fail(f"cli {name} printed keys {sorted(r['json'])}, not {sorted(CLI_KEYS[command])}")
+        missing = [n for n in needed if r["launches"][n] == 0]
+        if missing:
+            fail(f"cli {name} never launched {missing}")
+        return r
+
+    # 1. render the default 5x5 rig at 270x360
+    data = scratch / "data"
+    run("render", ["render", "--output", str(data)])
+    paths = list_images_sorted(str(data))
+    images = torch.from_numpy(load_image_stack(paths)).to("cuda")
+    h, w = images.shape[1:]
+    gt_depths = load_array(str(data / "ground_truth.npz"))[0]["depths"]
+
+    # 2. depth: CROSS, to_center, the CROSS cascade
+    for name, extra, needed in (("depth_cross", CLI_ARRAY, ARRAY_PATH),
+                                ("depth_to_center", [], ARRAY_PATH),
+                                ("depth_cascade", [*CLI_ARRAY, "--cascade"],
+                                 [*ARRAY_PATH, "K9 hat_sample_2d"])):
+        out_dir = scratch / name
+        r = run(name, ["depth", "--input", str(data), "--output", str(out_dir), *extra], needed)
+        cfg = cli_config(["depth", "--input", ".", *extra])
+        if "--cascade" in extra:
+            cfg = cfg.override(**{"plane_sweep.cascade": True})
+        cams = cli._rig_from_config(cfg, (h, w)).to("cuda")
+        out, pts, pvalid, col, ref = cli_depth_direct(torch, images, cams, cfg)
+        check.arrays(out_dir / "depth.npz", {
+            "depth": out.refined_depth, "disparity": out.refined_disparity, "valid": out.valid,
+            "confidence": out.sweep.confidence}, f"{name}/")
+        check.png(out_dir / "depth.png", out.refined_depth, f"{name}/")
+        check.png(out_dir / "disparity.png", out.refined_disparity, f"{name}/")
+        n = check.ply(out_dir / "cloud.ply", pts.cpu().numpy().reshape(-1, 3),
+                      colors=col.cpu().numpy(), valid=pvalid.cpu().numpy().reshape(-1),
+                      tag=f"{name}/")
+        gt = gt_depths[ref]
+        d = out.refined_depth.cpu().numpy()
+        mask = out.valid.cpu().numpy() & (gt > 0)
+        check.png(out_dir / "error.png", np.abs(d - gt) * mask, f"{name}/")
+        check.value(f"{name}/points", r["json"]["points"], n)
+        check.value(f"{name}/mean_abs_err", r["json"]["mean_abs_err"], float(masked_mean_error(
+            torch.from_numpy(d), torch.from_numpy(gt), torch.from_numpy(mask))))
+
+    # 3-4. two-view: the fixture (int16, int8), a bench-shaped pair (int8), the cascade
+    fixture = REPO / "data" / "eval_scene"
+    pair_dir = scratch / "pairs"
+    pair_dir.mkdir()
+    bench_l, bench_r = stereo_pair(torch, BENCH_SHAPE[0], BENCH_SHAPE[1], seed=0, integer=True)
+    casc_l, casc_r, _, _ = two_view_cascade_scene(torch, "cpu")
+    for stem, a in (("bench_l", bench_l), ("bench_r", bench_r), ("cascade_l", casc_l),
+                    ("cascade_r", casc_r)):
+        write_png(str(pair_dir / f"{stem}.png"),
+                  np.clip(np.round(a.cpu().numpy()), 0, 255).astype(np.uint8))
+    two_views = (
+        ("two_view_fixture_int16", fixture / "im0.png", fixture / "im1.png", CLI_FIXTURE, False),
+        ("two_view_fixture_int8", fixture / "im0.png", fixture / "im1.png",
+         [*CLI_FIXTURE, "--set", "cost.dtype=int8"], False),
+        ("two_view_bench_int8", pair_dir / "bench_l.png", pair_dir / "bench_r.png", CLI_BENCH,
+         False),
+        ("two_view_cascade", pair_dir / "cascade_l.png", pair_dir / "cascade_r.png", CLI_CASCADE,
+         True),
+    )
+    for name, lp, rp, extra, cascade in two_views:
+        out_dir = scratch / name
+        needed = [*TWO_VIEW_PATH[:3], "K9 hat_sample"] if cascade else TWO_VIEW_PATH
+        r = run(name, ["two-view", "--left", str(lp), "--right", str(rp), "--output",
+                       str(out_dir), *extra], needed)
+        args = cli.build_parser().parse_args(["two-view", "--left", ".", "--right", ".", *extra])
+        cfg = cli.load_config(args)
+        left = torch.from_numpy(load_image_gray(str(lp))).to("cuda")
+        right = torch.from_numpy(load_image_gray(str(rp))).to("cuda")
+        if cascade:
+            out = cascade_two_view_disparity(
+                left, right, cfg.cost, cfg.sgm, coarse_factor=args.coarse_factor,
+                fine_disparities=args.fine_disparities, band_step=args.band_step,
+                mode=args.cascade_mode, backend="torch")
+        else:
+            out = two_view_disparity(left, right, cfg.cost, cfg.sgm, backend="torch")
+        check.arrays(out_dir / "two_view.npz", {"disparity": out.disparity, "valid": out.valid,
+                                                "confidence": out.confidence}, f"{name}/")
+        check.png(out_dir / "disparity.png", out.disparity, f"{name}/")
+        check.png(out_dir / "confidence.png", out.confidence, f"{name}/", vmin=0.0, vmax=1.0)
+        check.value(f"{name}/valid_fraction", r["json"]["valid_fraction"],
+                    float(out.valid.cpu().numpy().mean()))
+    pair = load_middlebury_pair(str(fixture))
+    if not (np.array_equal(load_image_gray(str(fixture / "im0.png")), pair.left)
+            and np.array_equal(load_image_gray(str(fixture / "im1.png")), pair.right)):
+        fail("the CLI's loader decodes data/eval_scene differently from phase 5's")
+
+    # 5 / 5g. evaluate the fixture runs against the ground truth as a .npz
+    gt = read_pfm(str(fixture / "disp0.pfm"))
+    x = np.arange(gt.shape[1])[None, :]
+    with np.errstate(invalid="ignore"):
+        matchable = np.isfinite(gt) & (gt > 0) & (x >= np.ceil(gt))
+    gt_file = scratch / "fixture_gt.npz"
+    # unmatchable pixels carry 0, so --positive-gt-only masks phase 5's pixels
+    save_array(str(gt_file), {"disparity": np.where(matchable, gt, 0.0).astype(np.float32)})
+    golden = {}
+    for dtype in ("int16", "int8"):
+        name = f"evaluate_fixture_{dtype}"
+        result = scratch / f"two_view_fixture_{dtype}" / "two_view.npz"
+        r = run(name, ["evaluate", "--result", str(result), "--ground-truth", str(gt_file),
+                       "--key", "disparity"])
+        arrays = load_array(str(result))[0]
+        pred = torch.from_numpy(arrays["disparity"]).to("cuda")
+        g = torch.from_numpy(np.where(matchable, gt, 0.0).astype(np.float32)).to("cuda")
+        valid = torch.from_numpy(arrays["valid"]).to("cuda") & (g > 0)
+        direct = {"masked_mean_err": masked_mean_error(pred, g, mask=valid),
+                  "epe": end_point_error(pred, g, mask=valid),
+                  **{f"bad_{t}": bad_pixel_ratio(pred, g, t, mask=valid) for t in (0.5, 1.0, 2.0)}}
+        for k, v in direct.items():
+            check.value(f"{name}/{k}", r["json"][k], float(v))
+        golden[dtype] = {"bad_2.0": r["json"]["bad_2.0"], "epe": r["json"]["epe"],
+                         "density": r["json"]["valid_fraction"] / float(matchable.mean())}
+
+    # 6. calibrate the 25 rendered views, with the distortion solve
+    cal_dir = scratch / "calibrate"
+    r = run("calibrate", ["calibrate", "--input", str(data), "--output", str(cal_dir),
+                          "--estimate-distortion"])
+    cfg = cli_config(["calibrate", "--input", "."])
+    cal = calibrate_array(images, cli._rig_from_config(cfg, (h, w)), cli._center_index(cfg),
+                          cfg.sfm, estimate_distortion=True)
+    check.arrays(cal_dir / "calibration.npz", {"R": cal.cameras.R, "t": cal.cameras.t,
+                                              "points": cal.points,
+                                              "point_valid": cal.point_valid}, "calibrate/")
+    for key, v in (("num_obs", int(cal.num_obs)), ("mean_reproj_px", float(cal.mean_reproj)),
+                   ("inlier_reproj_px", float(cal.inlier_reproj)),
+                   ("k1", float(cal.distortion[0])), ("k2", float(cal.distortion[1]))):
+        check.value(f"calibrate/{key}", r["json"][key], v)
+
+    # 7. reconstruct all 25 views at the CROSS config
+    rec_dir = scratch / "reconstruct"
+    run("reconstruct", ["reconstruct", "--input", str(data), "--output", str(rec_dir),
+                        *CLI_ARRAY], ARRAY_PATH)
+    cfg = cli_config(["reconstruct", "--input", ".", *CLI_ARRAY])
+    cams = cli._rig_from_config(cfg, (h, w)).to("cuda")
+    views = tuple(range(len(paths)))
+    res, _ = reconstruct_array(images, cams, cfg, view_indices=views, backend="torch")
+    pts, conf, col = fused_point_cloud(res, images)
+    nrm = torch.stack([depth_normals(cams[k], res.depth[k], res.valid[k])[0] for k in views])
+    c8 = np.clip(col, 0, 255).astype(np.uint8)
+    check.ply(rec_dir / "fused_cloud.ply", pts, colors=np.stack([c8] * 3, axis=-1),
+              normals=nrm.cpu().numpy().reshape(-1, 3)[res.valid.cpu().numpy().reshape(-1)],
+              quality=conf, tag="reconstruct/")
+    check.arrays(rec_dir / "fused.npz", {"depths": res.depth, "valid": res.valid,
+                                         "support": res.support, "confidence": res.confidence,
+                                         "views": np.asarray(views)}, "reconstruct/")
+
+    # 8. serve phase 4e's eight frame-sets, chunked by 4, with the temporal filter
+    srv_dir = scratch / "serve"
+    run("serve", ["serve", *served_dirs, "--output", str(srv_dir), "--chunk", "4", "--temporal",
+                  *CLI_ARRAY], ARRAY_PATH)
+    cfg = cli_config(["serve", ".", *CLI_ARRAY])
+    cams = cli._rig_from_config(cfg, (h, w)).to("cuda")
+    ref, src = reference_and_sources(cfg, len(paths))
+    b0, f_px = array_baselines(cams, ref, src)[1], float(cams.host().fx[ref])
+    state = temporal_init((h, w), "cuda")
+    for i, d in enumerate(sorted(served_dirs)):
+        x = torch.from_numpy(load_image_stack(list_images_sorted(d))).to("cuda")
+        out = array_depth_pipeline(x, cams, cfg, backend="torch")
+        state, tout = temporal_update(state, out.refined_disparity, out.valid,
+                                      out.sweep.confidence)
+        depth = torch.where(tout.valid, disparity_to_depth(tout.disparity, b0, f_px), 0.0)
+        check.arrays(srv_dir / f"depth_{i:04d}.npz", {"depth": depth, "valid": tout.valid,
+                                                     "stability": tout.stability}, "serve/")
+        check.png(srv_dir / f"depth_{i:04d}.png", depth, "serve/")
+    check.value("serve/frames", runs["serve"]["json"]["frames"], len(served_dirs))
+
+    # 9. inspect depth.npz
+    cross_npz = scratch / "depth_cross" / "depth.npz"
+    r = run("inspect", ["inspect", str(cross_npz), "--at", str(w // 2), str(h // 2)])
+    arrays = load_array(str(cross_npz))[0]
+    for k, a in arrays.items():
+        check.value(f"inspect/{k}.at", r["json"][k]["at"]["value"], a[h // 2, w // 2].item())
+
+    # the module's entry point in its own process: the in-process CROSS run's artifacts
+    sub_dir = scratch / "depth_cross_process"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stereovisionarray_tpu_torch", "depth",
+                           "--input", str(data), "--output", str(sub_dir), *CLI_ARRAY],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    process_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m stereovisionarray_tpu_torch depth exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    want = load_array(str(cross_npz))[0]
+    check.arrays(sub_dir / "depth.npz", want, "process/")
+    check.same("process/cloud.ply", (sub_dir / "cloud.ply").read_bytes()
+               == (scratch / "depth_cross" / "cloud.ply").read_bytes())
+
+    off = {k: v for k, v in check.errs.items() if v != 0.0}
+    emit({"phase": "cli", "runs": {n: {"json": r["json"],
+                                       "launches": {k: c for k, c in r["launches"].items() if c},
+                                       "wall_ms": r["wall_ms"]} for n, r in runs.items()},
+          "artifacts_checked": len(check.errs), "max_abs_err_vs_direct": off,
+          "process": {"returncode": proc.returncode, "wall_s": process_s}, **tag})
+    if off:
+        fail(f"CLI artifacts differ from the direct calls: {off}")
+    misses = {}
+    for dtype, got in golden.items():
+        want = GOLDEN[dtype]
+        miss = {m: got[m] - want[m] for m in want if abs(got[m] - want[m]) > GOLDEN_TOL}
+        emit({"phase": "cli_golden", "dtype": dtype, "metrics": got, "reference": want,
+              "tolerance": GOLDEN_TOL, **tag})
+        if miss:
+            misses[dtype] = miss
+    if misses:
+        fail(f"the CLI's evaluate of the fixture is off GOLDEN by {misses}")
+    return {"totals": totals, "runs": runs, "images": images, "data": data,
+            "served_dirs": served_dirs, "process_s": process_s}
+
+
+def cli_timing(torch, tag, scratch: Path, state) -> None:
+    """Phase 6g: each subcommand's in-process wall (host clock; CUDA events
+    around the call) beside the direct call it wraps on inputs already on the
+    card (kernels, host clock to a synchronize): the difference is the CLI's
+    own decode, host copies and file writes, split for the fixture's
+    two-view; and the `python -m` process beside a process that only starts."""
+    from stereovisionarray_tpu_torch import cli
+    from stereovisionarray_tpu_torch.datasets import (
+        list_images_sorted,
+        load_array,
+        load_image_gray,
+        load_image_stack,
+        save_array,
+        save_png,
+    )
+    from stereovisionarray_tpu_torch.models import (
+        TemporalParams,
+        array_baselines,
+        calibrate_array,
+        reference_and_sources,
+        stream_depth_maps_chunked,
+        two_view_disparity,
+    )
+    from stereovisionarray_tpu_torch.models.fusion import fused_point_cloud, reconstruct_array
+
+    images, data = state["images"], state["data"]
+    h, w = images.shape[1:]
+
+    cross = cli_config(["depth", "--input", ".", *CLI_ARRAY])
+    cams = cli._rig_from_config(cross, (h, w)).to("cuda")
+    fixture = REPO / "data" / "eval_scene"
+    fcfg = cli_config(["two-view", "--left", ".", "--right", ".", *CLI_FIXTURE])
+    fl, fr = (torch.from_numpy(load_image_gray(str(fixture / f))).to("cuda")
+              for f in ("im0.png", "im1.png"))
+    stacks = [load_image_stack(list_images_sorted(d)) for d in sorted(state["served_dirs"])]
+    ref, src = reference_and_sources(cross, len(images))
+    params = TemporalParams(baseline=array_baselines(cams, ref, src)[1],
+                            focal_px=float(cams.host().fx[ref]))
+    cal_cfg = cli_config(["calibrate", "--input", "."])
+    cal_rig = cli._rig_from_config(cal_cfg, (h, w))
+
+    def serve_direct():  # the stream over decoded sets, each result copied back
+        for res in stream_depth_maps_chunked(iter(stacks), cams, cross, chunk=4,
+                                             temporal=params, device="cuda"):
+            res.depth.cpu()
+
+    def uncounted(run):
+        rc = run()
+        torch.cuda.synchronize()
+        return rc, None, None
+
+    cases = (
+        ("depth", ["depth", "--input", str(data), "--output", str(scratch / "t_depth"),
+                   *CLI_ARRAY], lambda: cli_depth_direct(torch, images, cams, cross, "auto"), 2),
+        ("two-view", ["two-view", "--left", str(fixture / "im0.png"), "--right",
+                      str(fixture / "im1.png"), "--output", str(scratch / "t_tv"), *CLI_FIXTURE],
+         lambda: two_view_disparity(fl, fr, fcfg.cost, fcfg.sgm), 2),
+        ("evaluate", ["evaluate", "--result",
+                      str(scratch / "two_view_fixture_int16" / "two_view.npz"),
+                      "--ground-truth", str(scratch / "fixture_gt.npz"), "--key", "disparity"],
+         None, 2),
+        ("reconstruct", ["reconstruct", "--input", str(data), "--output",
+                         str(scratch / "t_rec"), *CLI_ARRAY],
+         lambda: fused_point_cloud(reconstruct_array(images, cams, cross)[0], images), 1),
+        ("calibrate", ["calibrate", "--input", str(data), "--output", str(scratch / "t_cal"),
+                       "--estimate-distortion"],
+         lambda: calibrate_array(images, cal_rig, ref, cal_cfg.sfm, estimate_distortion=True),
+         1),
+        ("serve", ["serve", *state["served_dirs"], "--output", str(scratch / "t_srv"),
+                   "--chunk", "4", "--temporal", *CLI_ARRAY], serve_direct, 1),
+        ("render", ["render", "--output", str(scratch / "t_render")], None, 1),
+        ("inspect", ["inspect", str(scratch / "depth_cross" / "depth.npz")], None, 1),
+    )
+    for name, argv, direct, rounds in cases:
+        cli_ms, cli_events, direct_ms = [], [], []
+        for _ in range(rounds):
+            r = cli_run(torch, uncounted, argv)
+            cli_ms.append(r["wall_ms"])
+            cli_events.append(r["events_ms"])
+            if direct is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                direct()
+                torch.cuda.synchronize()
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "timing", "metric": "cli_ms", "subcommand": name, "rounds": rounds,
+              "cli_wall_ms": cli_ms, "cli_events_ms": cli_events,
+              "direct_wall_ms": direct_ms or None,
+              "cli_overhead_ms": [c - d for c, d in zip(cli_ms, direct_ms)] or None, **tag})
+    # the CLI's own host work on the fixture's two-view, part by part
+    tv = load_array(str(scratch / "two_view_fixture_int16" / "two_view.npz"))[0]
+    parts = {}
+    for part, fn in (
+            ("decode_pair", lambda: [load_image_gray(str(fixture / f))
+                                     for f in ("im0.png", "im1.png")]),
+            ("save_array", lambda: save_array(str(scratch / "t_part.npz"), tv)),
+            ("save_png_x2", lambda: (save_png(str(scratch / "t_part.png"), tv["disparity"]),
+                                     save_png(str(scratch / "t_part.png"), tv["confidence"],
+                                              vmin=0.0, vmax=1.0)))):
+        t0 = time.perf_counter()
+        fn()
+        parts[f"{part}_ms"] = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "timing", "metric": "cli_host_parts_ms", "subcommand": "two-view",
+          "shape": list(tv["disparity"].shape), **parts, **tag})
+    # the process: its start (interpreter, torch, the card's context) and the run
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch, stereovisionarray_tpu_torch.cli; "
+                    "torch.zeros(1, device='cuda')"], cwd=REPO, check=True, timeout=300)
+    emit({"phase": "timing", "metric": "cli_process_s", "subcommand": "depth",
+          "config": "CROSS", "wall_s": state["process_s"],
+          "start_only_s": time.perf_counter() - t0, **tag})
 
 
 def main() -> None:
@@ -2324,13 +2849,15 @@ def main() -> None:
     # ---- 4e-6e. the served capture path --------------------------------------------
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as tmp:
-        scene = served_scene(torch, tmp)
-        served_counts = served_path(torch, counted, tag, *scene)
-        for k in all_kernels:
-            k["served_launches"] = served_counts[k["name"]]
-        records(torch, tag)
-        served_timing(torch, tag, *scene)
+    # the served frame-sets stay on disk for the CLI's `serve` (4g)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_served_")
+    tmp = tmp_dir.name
+    scene = served_scene(torch, tmp)
+    served_counts = served_path(torch, counted, tag, *scene)
+    for k in all_kernels:
+        k["served_launches"] = served_counts[k["name"]]
+    records(torch, tag)
+    served_timing(torch, tag, *scene)
 
     # ---- 4f-6f. SfM and calibration: the calibrated rig's depth, the rectified pair -----
     sfm_state, calibrated_counts = calibration_paths(torch, counted, tag, bench_cfg)
@@ -2338,6 +2865,15 @@ def main() -> None:
         k["calibrated_launches"] = calibrated_counts[k["name"]]
     calibration_records(tag, sfm_state)
     calibration_timing(torch, tag, sfm_state, bench_cfg, bench_pair)
+
+    # ---- 4g-6g. the command line ---------------------------------------------------
+    cli_scratch = Path(tmp) / "cli"
+    cli_scratch.mkdir()
+    cli_state = cli_paths(torch, counted, tag, cli_scratch, scene[2])
+    for k in all_kernels:
+        k["cli_launches"] = cli_state["totals"][k["name"]]
+    cli_timing(torch, tag, cli_scratch, cli_state)
+    tmp_dir.cleanup()
 
     # bound: the larger of the bytes the function must move (each input read
     # once, each output written once) over HBM bandwidth and its scalar
@@ -2381,13 +2917,14 @@ def main() -> None:
                        "replaces": k["replaces"],
                        "launches": (k["launches"] + k["array_launches"] + k["cascade_launches"]
                                     + k["float_launches"] + k["served_launches"]
-                                    + k["calibrated_launches"]),
+                                    + k["calibrated_launches"] + k["cli_launches"]),
                        "launches_by_path": {"two_view": k["launches"],
                                             "array": k["array_launches"],
                                             "cascade": k["cascade_launches"],
                                             "float": k["float_launches"],
                                             "served": k["served_launches"],
-                                            "calibrated": k["calibrated_launches"]},
+                                            "calibrated": k["calibrated_launches"],
+                                            "cli": k["cli_launches"]},
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                        "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

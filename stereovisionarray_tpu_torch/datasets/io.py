@@ -1,4 +1,4 @@
-"""Image I/O (twin of the image half of ``stereovisionarray_tpu/datasets/io.py``).
+"""Image and artifact I/O (twin of ``stereovisionarray_tpu/datasets/io.py``).
 
 The reference reads and writes images through its C++ codec and falls back
 to imageio, which the machines this port runs on need not have. The port
@@ -10,21 +10,29 @@ encoder. Both routes give the same pixels: the gray conversion is the codec's
 ``0.299 r + 0.587 g + 0.114 b`` in float32, summed left to right.
 :func:`native_available` says which route ran. Directory listings are sorted,
 unlike the reference's directory walk.
+
+Artifacts are the reference's files, byte for byte where the format allows:
+named arrays with JSON metadata in one ``.npz`` (:func:`save_array`), and
+binary little-endian PLY point clouds (:func:`save_ply`), so either package
+reads what the other wrote. These functions take numpy arrays: copy tensors
+on the card to the host first.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from stereovisionarray_tpu_torch.datasets import native_loader
 
-__all__ = ["list_images_sorted", "load_image_gray", "load_image_stack", "native_available",
-           "read_png", "save_png", "write_png"]
+__all__ = ["list_images_sorted", "load_array", "load_image_gray", "load_image_stack",
+           "load_ply", "native_available", "read_png", "save_array", "save_png", "save_ply",
+           "write_png"]
 
 _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".pgm", ".ppm")
 
@@ -192,3 +200,109 @@ def save_png(path: str, array: np.ndarray, vmin: Optional[float] = None,
         native_loader.encode_png_gray(path, u8)
     else:
         write_png(path, u8)
+
+
+def save_array(path: str, arrays: Dict[str, np.ndarray], metadata: Optional[Dict] = None) -> None:
+    """Named arrays and JSON metadata (``{"version": 1, **metadata}``, stored
+    as the uint8 array ``__meta__``) in one compressed ``.npz``."""
+    payload = {k: np.asarray(v) for k, v in arrays.items()}
+    payload["__meta__"] = np.frombuffer(
+        json.dumps({"version": 1, **(metadata or {})}).encode(), dtype=np.uint8
+    )
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **payload)
+
+
+def load_array(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Inverse of :func:`save_array` -> (arrays, metadata)."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode()) if "__meta__" in z.files else {}
+    return arrays, meta
+
+
+def save_ply(
+    path: str,
+    points: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    valid: Optional[np.ndarray] = None,
+    normals: Optional[np.ndarray] = None,
+    quality: Optional[np.ndarray] = None,
+) -> int:
+    """Write a binary little-endian PLY point cloud; returns the number of
+    points written.
+
+    Args:
+      points: (..., 3) float positions (flattened).
+      colors: optional (..., 3) uint8 RGB per point.
+      valid: optional (...) boolean filter.
+      normals: optional (..., 3) float unit normals (nx, ny, nz).
+      quality: optional (...) float per-point scalar (e.g. fusion
+        confidence), the standard `quality` property.
+    """
+    pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
+    col = None if colors is None else np.asarray(colors, dtype=np.uint8).reshape(-1, 3)
+    nrm = None if normals is None else np.asarray(normals, dtype=np.float32).reshape(-1, 3)
+    qual = None if quality is None else np.asarray(quality, dtype=np.float32).reshape(-1)
+    if valid is not None:
+        keep = np.asarray(valid).reshape(-1)
+        pts = pts[keep]
+        col = col[keep] if col is not None else None
+        nrm = nrm[keep] if nrm is not None else None
+        qual = qual[keep] if qual is not None else None
+    n = pts.shape[0]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    fields = [("xyz", "<f4", 3)]
+    if nrm is not None:
+        header += ["property float nx", "property float ny", "property float nz"]
+        fields += [("normal", "<f4", 3)]
+    if col is not None:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+        fields += [("rgb", "u1", 3)]
+    if qual is not None:
+        header += ["property float quality"]
+        fields += [("quality", "<f4")]
+    header += ["end_header"]
+    rec = np.zeros(n, dtype=fields)
+    rec["xyz"] = pts
+    if nrm is not None:
+        rec["normal"] = nrm
+    if col is not None:
+        rec["rgb"] = col
+    if qual is not None:
+        rec["quality"] = qual
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())
+    return n
+
+
+_PLY_TYPES = {"float": "<f4", "uchar": "u1", "int": "<i4", "double": "<f8", "short": "<i2",
+              "ushort": "<u2"}
+
+
+def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Read a binary PLY as :func:`save_ply` writes it -> (points (N, 3)
+    float32, colors (N, 3) uint8 or None). The property list is parsed
+    generically, so files with normals and quality load too (those channels
+    are skipped)."""
+    with open(path, "rb") as f:
+        n = 0
+        props = []  # (name, numpy type) in file order
+        while True:
+            line = f.readline().decode("ascii").strip()
+            if line.startswith("element vertex"):
+                n = int(line.split()[-1])
+            elif line.startswith("property"):
+                _, ptype, name = line.split()
+                props.append((name, _PLY_TYPES[ptype]))
+            elif line == "end_header":
+                break
+        rec = np.frombuffer(f.read(), dtype=props, count=n)
+    pts = np.stack([rec["x"], rec["y"], rec["z"]], axis=-1).astype(np.float32)
+    col = None
+    if {"red", "green", "blue"} <= {name for name, _ in props}:
+        col = np.stack([rec["red"], rec["green"], rec["blue"]], axis=-1).astype(np.uint8)
+    return pts, col

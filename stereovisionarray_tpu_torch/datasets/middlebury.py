@@ -37,6 +37,24 @@ def read_pfm(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[::-1]).astype(np.float32)  # bottom-up -> top-down
 
 
+def write_pfm(path: str, data: np.ndarray, scale: float = 1.0) -> None:
+    """Write a float32 array (H, W) or (H, W, 3) as a little-endian PFM,
+    bottom row first."""
+    data = np.asarray(data, dtype=np.float32)
+    if data.ndim == 2:
+        header = b"Pf"
+    elif data.ndim == 3 and data.shape[2] == 3:
+        header = b"PF"
+    else:
+        raise ValueError(f"PFM supports (H,W) or (H,W,3), got {data.shape}")
+    h, w = data.shape[:2]
+    with open(path, "wb") as f:
+        f.write(header + b"\n")
+        f.write(f"{w} {h}\n".encode())
+        f.write(f"{-abs(scale)}\n".encode())  # negative: little-endian
+        f.write(np.ascontiguousarray(data[::-1]).astype("<f4").tobytes())
+
+
 def parse_calib(text: str) -> Dict[str, object]:
     """Parse a Middlebury ``calib.txt``: ``cam0=[f 0 cx; 0 f cy; 0 0 1]``
     matrices plus scalar fields (doffs, baseline, width, height, ndisp...)."""

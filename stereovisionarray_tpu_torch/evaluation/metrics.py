@@ -1,5 +1,5 @@
-"""Middlebury bad-τ ratio, end-point error and the trajectory error of a
-calibration (twin of ``stereovisionarray_tpu/evaluation/metrics.py``);
+"""Middlebury bad-τ ratio, end-point error, the reference's masked mean and
+x50 error image, and the trajectory error of a calibration (twin of ``stereovisionarray_tpu/evaluation/metrics.py``);
 float32 sums, mask-aware."""
 
 from __future__ import annotations
@@ -43,6 +43,20 @@ def end_point_error(disparity: torch.Tensor, gt: torch.Tensor,
     m = valid if mask is None else (valid & mask)
     err, mf = _masked((disparity - gt).abs(), m)
     return err.sum() / mf.sum().clamp_min(1.0)
+
+
+def masked_mean_error(depth: torch.Tensor, gt: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean signed error ``depth - gt`` within the mask (the original
+    program's ``calculateAverageError``)."""
+    err, m = _masked(depth - gt, mask)
+    return err.sum() / m.sum().clamp_min(1.0)
+
+
+def depth_error_map(depth: torch.Tensor, gt: torch.Tensor, scale: float = 50.0) -> torch.Tensor:
+    """The x50 visual error image the original program displays, as an
+    array for PNG export."""
+    return (depth - gt) * scale
 
 
 def array_depth_metrics(depth, refined_depth, valid, gt, border: int = 8) -> dict:

@@ -1,6 +1,6 @@
-"""Camera model, Lie maps, pair topologies, plane-depth hypotheses,
-rectification, lens distortion, point-cloud converters and the host-side
-cloud passes of the camera array."""
+"""Camera model, Lie maps, pair topologies and groups, plane-depth
+hypotheses and epipolar candidates, rectification, lens distortion,
+point-cloud converters and the host-side cloud passes of the camera array."""
 
 from stereovisionarray_tpu_torch.geometry.camera import (  # noqa: F401
     CameraArray,
@@ -15,12 +15,17 @@ from stereovisionarray_tpu_torch.geometry.lie import (  # noqa: F401
     so3_exp,
     so3_log,
 )
-from stereovisionarray_tpu_torch.geometry.epipolar import inverse_depth_samples  # noqa: F401
+from stereovisionarray_tpu_torch.geometry.epipolar import (  # noqa: F401
+    epipolar_candidates,
+    inverse_depth_samples,
+    rectified_shift_candidates,
+)
 from stereovisionarray_tpu_torch.geometry.topology import (  # noqa: F401
     PairTopology,
     camera_pairs,
     cross_pairs_around,
     grid_positions,
+    pair_groups,
 )
 from stereovisionarray_tpu_torch.geometry.pointcloud import (  # noqa: F401
     depth_map_to_points,

@@ -1,10 +1,15 @@
-"""Plane-depth hypotheses (twin of ``stereovisionarray_tpu/geometry/epipolar.py``).
+"""Plane-depth hypotheses and epipolar candidates (twin of
+``stereovisionarray_tpu/geometry/epipolar.py``).
 
 The plane depths feed ``floor()`` in the plane-sweep warp, so they must equal
 the reference's bit for bit. ``torch.linspace`` rounds differently from
 ``jnp.linspace`` (and uses a two-sided formula on CUDA), so the depths are
 computed on the host in numpy float32 with the reference's own arithmetic and
-only then moved to a device.
+only then moved to a device. :func:`epipolar_candidates` gives every
+reference pixel's match in a source view at each depth, the whole grid at
+once (the original program walks each pixel's epipolar segment with
+Bresenham); the plane sweep never builds them (K8 warps by shifts and
+homographies), they serve tests and general geometry.
 """
 
 from __future__ import annotations
@@ -12,9 +17,14 @@ from __future__ import annotations
 import functools
 from fractions import Fraction
 
-import numpy as np
+from typing import Tuple
 
-__all__ = ["inverse_depth_samples"]
+import numpy as np
+import torch
+
+from stereovisionarray_tpu_torch.geometry.camera import CameraArray
+
+__all__ = ["epipolar_candidates", "inverse_depth_samples", "rectified_shift_candidates"]
 
 
 def _round_f32(x: Fraction) -> np.float32:
@@ -62,3 +72,31 @@ def _inverse_depth_samples(z_near: float, z_far: float, num: int) -> np.ndarray:
     else:
         inv = np.full((num,), start, dtype=np.float32)
     return np.float32(1.0) / inv.astype(np.float32)
+
+
+def epipolar_candidates(cameras: CameraArray, ref: int, src: int, resolution: Tuple[int, int],
+                        depths) -> torch.Tensor:
+    """(D, H, W, 2) source-view pixel coordinates (u, v) of every reference
+    pixel backprojected from camera `ref` at each of the D depths and
+    projected into camera `src`, on the cameras' device; D leads, so one
+    depth's candidates are a contiguous slab."""
+    h, w = resolution
+    cam_ref, cam_src = cameras[ref], cameras[src]
+    device = cam_ref.fx.device
+    z = torch.as_tensor(depths, dtype=torch.float32, device=device).reshape(-1)
+    v = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    u = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
+    uv = torch.stack([u, v], dim=-1)  # (H, W, 2) pixel centres
+    D = z.shape[0]
+    pts = cam_ref.backproject(uv.expand(D, h, w, 2), z[:, None, None].expand(D, h, w))
+    return cam_src.project(pts)[0]
+
+
+def rectified_shift_candidates(width: int, num_disparities: int, dtype=torch.float32,
+                               device=None) -> torch.Tensor:
+    """(D, W) source columns of a rectified pair, ``x_src = x - d``: the
+    degenerate epipolar geometry of the two-view path, whose candidates are
+    never built."""
+    x = torch.arange(width, dtype=dtype, device=device)[None, :]
+    d = torch.arange(num_disparities, dtype=dtype, device=device)[:, None]
+    return x - d

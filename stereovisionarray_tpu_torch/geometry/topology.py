@@ -10,11 +10,11 @@ so the port keeps its own copy.
 from __future__ import annotations
 
 import enum
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["PairTopology", "camera_pairs", "cross_pairs_around", "grid_positions"]
+__all__ = ["PairTopology", "camera_pairs", "cross_pairs_around", "grid_positions", "pair_groups"]
 
 
 class PairTopology(enum.Enum):
@@ -87,6 +87,20 @@ def camera_pairs(topology, rows: int = 5, cols: int = 5, center: int | None = No
     else:  # JUMP_CROSS
         return cross_pairs_around(center, rows, cols, step=2)
     return np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+
+
+def pair_groups(group_type: str, rows: int = 5, cols: int = 5) -> List[np.ndarray]:
+    """Groups of pair lists, the original program's ``getGroups("CHESS")``:
+    the CROSS neighbourhood of every even camera index, each a (P_i, 2)
+    array (empty neighbourhoods left out)."""
+    if group_type.upper() != "CHESS":
+        raise ValueError(f"unknown group type {group_type!r}")
+    groups = []
+    for cam in range(0, rows * cols, 2):
+        g = cross_pairs_around(cam, rows, cols, step=1)
+        if len(g):
+            groups.append(g)
+    return groups
 
 
 def grid_positions(rows: int, cols: int, spacing: float,

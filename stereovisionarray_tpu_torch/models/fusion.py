@@ -128,12 +128,14 @@ def fused_point_cloud(result: FusionResult, colors: Optional[torch.Tensor] = Non
 def reconstruct_array(images: torch.Tensor, cameras: CameraArray, cfg=None,
                       view_indices: Optional[Tuple[int, ...]] = None, *, use_roi: bool = False,
                       rel_thresh: float = 0.01, min_support: int = 3, dedup: bool = True,
-                      min_confidence: float = 0.0) -> Tuple[FusionResult, torch.Tensor]:
+                      min_confidence: float = 0.0, backend: str = "auto"
+                      ) -> Tuple[FusionResult, torch.Tensor]:
     """Per-view depth maps fused into one cloud: ``array_depth_pipeline`` with
     each entry of `view_indices` (default every view) as the reference, then
     :func:`fuse_depth_maps`. min_confidence > 0 drops pixels whose PKRN
-    confidence is below it before they can vote. Returns (FusionResult over
-    the selected views, depths (V, H, W))."""
+    confidence is below it before they can vote. `backend` is the pipeline's
+    (``array_depth_pipeline``). Returns (FusionResult over the selected
+    views, depths (V, H, W))."""
     from stereovisionarray_tpu_torch.config import EngineConfig
     from stereovisionarray_tpu_torch.models.array_pipeline import array_depth_pipeline
 
@@ -143,7 +145,8 @@ def reconstruct_array(images: torch.Tensor, cameras: CameraArray, cfg=None,
         view_indices = tuple(range(images.shape[0]))
     depths, valids = [], []
     for ref in view_indices:
-        out = array_depth_pipeline(images, cameras, cfg, ref_index=int(ref), use_roi=use_roi)
+        out = array_depth_pipeline(images, cameras, cfg, ref_index=int(ref), use_roi=use_roi,
+                                   backend=backend)
         valid = out.valid
         if min_confidence > 0.0 and out.sweep.confidence is not None:
             valid = valid & (out.sweep.confidence >= min_confidence)

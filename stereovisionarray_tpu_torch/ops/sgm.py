@@ -18,13 +18,15 @@ and int16 costs). Float volumes compute each path as the reference's float
 recurrence does; :func:`aggregate_paths` sums them as its XLA scans do, and
 :func:`aggregate_paths_float` in the order (fused multiply-adds included) of
 one of its Pallas routes (``ORDERS``). The CUDA kernels behind both are in
-``ops/sgm_cuda.py``.
+``ops/sgm_cuda.py``. :func:`sgm_aggregate_reference` is the reference's
+per-pixel numpy oracle, for tests.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 BIG_INT = 16000  # int16 sentinel of the reference: survives +P1/+P2 without overflow
@@ -285,3 +287,35 @@ def sgm_aggregate(
     p2_y, p2_x = p2_maps((h, w), p2, sum_dtype(vol.dtype), vol.device, image,
                          adaptive_p2, p2_min)
     return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
+
+
+def sgm_aggregate_reference(vol, p1: float, p2: float, num_paths: int = 8) -> np.ndarray:
+    """The reference's slow oracle: the dynamic program pixel by pixel in
+    float64 numpy, constant P2. `vol` is an (H, W, D) tensor (on any device)
+    or array; returns the (H, W, D) float64 path sum."""
+    if isinstance(vol, torch.Tensor):
+        vol = vol.detach().cpu().numpy()
+    vol = np.asarray(vol, dtype=np.float64)
+    h, w, D = vol.shape
+    dirs = [(0, 1), (0, -1), (1, 0), (-1, 0)]
+    if num_paths == 8:
+        dirs += [(1, 1), (1, -1), (-1, 1), (-1, -1)]
+    total = np.zeros_like(vol)
+    for dy, dx in dirs:
+        L = np.zeros_like(vol)
+        ys = range(h) if dy >= 0 else range(h - 1, -1, -1)
+        xs = range(w) if dx >= 0 else range(w - 1, -1, -1)
+        for y in ys:
+            for x in xs:
+                py, px = y - dy, x - dx
+                if 0 <= py < h and 0 <= px < w:
+                    prev = L[py, px]
+                    pmin = prev.min()
+                    cand = np.minimum(prev, pmin + p2)
+                    cand = np.minimum(cand, np.concatenate([[prev[0] + p1 + 1.0], prev[:-1] + p1]))
+                    cand = np.minimum(cand, np.concatenate([prev[1:] + p1, [prev[-1] + p1 + 1.0]]))
+                    L[y, x] = vol[y, x] + cand - pmin
+                else:
+                    L[y, x] = vol[y, x]
+        total += L
+    return total

@@ -31,7 +31,8 @@ card, the temporal filter and the face ROI's stages do not wait for the card;
 for SfM, that calibrate_array makes no synchronizing call but its final copy,
 gives bit-identical runs and ignores TF32, and that the calibrated rig's
 depth (no synchronizing call; behind a spin on two views) and a rectified
-verged pair equal their plain routes.
+verged pair equal their plain routes; for the command line, that `two-view`
+and `depth` with --device cuda write the artifacts --device cpu writes.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -1188,3 +1189,50 @@ def test_rectified_two_view_matches_plain(rng, launched):
     _same(got[1], want[1])
     _same(got[2], want[2])
     assert got[0].valid.float().mean() > 0.5
+
+
+CLI_SMALL = ["--set", "camera.rows=3", "--set", "camera.cols=3",
+             "--set", "plane_sweep.num_planes=32", "--set", "sgm.num_paths=4"]
+
+
+@pytest.mark.parametrize("command", ["two-view", "depth"])
+def test_cli_on_the_card_writes_the_cpu_artifacts(rng, tmp_path, launched, command):
+    """`two-view` (int16 costs: K1, K2/K3, K4 with the LR check fused) and
+    `depth` (K8, K2/K3, K4) with --device cuda write the .npz arrays, PNG
+    pixels and PLY bytes that --device cpu writes. `depth` runs without the
+    refinement: its float box sums are cumulative sums, a parallel scan on the
+    card and a sequential one on the CPU, so only the integer route is
+    bit-identical across the two devices."""
+    from pathlib import Path
+
+    from stereovisionarray_tpu_torch.cli import main
+    from stereovisionarray_tpu_torch.datasets import load_array, read_png
+
+    data = str(tmp_path / "data")
+    assert main(["render", "--output", data, "--resolution", "40", "56", *CLI_SMALL]) == 0
+    if command == "depth":
+        argv = ["depth", "--input", data, *CLI_SMALL, "--set", "refine.iterations=0"]
+        files = ("depth.npz", "depth.png", "disparity.png", "error.png", "cloud.ply")
+        kernels = {"svt_plane_sweep", "svt_sgm_paths", "svt_extract_maps"}
+    else:
+        argv = ["two-view", "--left", f"{data}/view_004.png", "--right", f"{data}/view_003.png",
+                "--set", "cost.num_disparities=32", "--baseline", "0.05", "--focal-px", "416.0"]
+        files = ("two_view.npz", "disparity.png", "depth.png", "confidence.png")
+        kernels = {"svt_cost_volume", "svt_sgm_paths", "svt_extract_maps"}
+    out = {}
+    for device in ("cpu", "cuda"):
+        launched.clear()
+        out[device] = tmp_path / device
+        assert main([*argv, "--output", str(out[device]), "--device", device]) == 0
+    assert kernels <= set(launched)
+    for name in files:
+        a, b = out["cpu"] / name, out["cuda"] / name
+        if name.endswith(".npz"):
+            got, want = load_array(str(b))[0], load_array(str(a))[0]
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+        elif name.endswith(".png"):
+            assert np.array_equal(read_png(str(b)), read_png(str(a))), name
+        else:
+            assert Path(b).read_bytes() == Path(a).read_bytes(), name

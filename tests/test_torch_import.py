@@ -48,6 +48,9 @@ ARRAY_SLICE_MODULES = (
     "geometry.lie", "geometry.distortion", "geometry.rectify", "evaluation.metrics",
     "sfm.features", "sfm.matching", "sfm.refine", "sfm.segments", "sfm.triangulate", "sfm.ba",
     "sfm.pose_graph", "models.calibration",
+    # the command line, utils/ and the rest of the public API
+    "cli", "__main__", "utils.obslog", "utils.profiling", "utils.debug", "utils.checkpoint",
+    "datasets.middlebury", "ops.cost_volume", "ops.sgm",
 )
 
 
