@@ -30,6 +30,7 @@ from stereovisionarray_tpu_torch.models.plane_sweep import PlaneSweepOutput, pla
 from stereovisionarray_tpu_torch.models.two_view import depth_to_disparity, disparity_to_depth
 from stereovisionarray_tpu_torch.ops.refine import multiview_refine
 from stereovisionarray_tpu_torch.roi import detect_face_ellipse, ellipse_mask, face_mask
+from stereovisionarray_tpu_torch.utils.profiling import span
 
 __all__ = ["ArrayPipelineOutput", "array_baselines", "array_depth_pipeline",
            "reference_and_sources"]
@@ -125,32 +126,36 @@ def array_depth_pipeline(
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
     tensors), "cuda" (kernels, CUDA tensors only) or "torch" (plain PyTorch
     on any device)."""
-    resolve_backend(images, backend)  # "cuda" refuses a CPU tensor here, before any work
-    images = images.to(torch.float32)
-    n, h, w = images.shape
-    ref_index, src_indices = reference_and_sources(cfg, n, ref_index)
-    if mask is None:
-        if use_roi and roi_mode == "face":
-            mask = face_mask(images[ref_index])
-        elif use_roi:
-            roi = detect_face_ellipse(images[ref_index])
-            # unfound -> ungated (all True), as roi.face_mask does
-            mask = ellipse_mask((h, w), roi.center, roi.axes, roi.angle) | ~roi.found
-        else:
+    with span("svt.array.prep"):
+        resolve_backend(images, backend)  # "cuda" refuses a CPU tensor here, before any work
+        images = images.to(torch.float32)
+        n, h, w = images.shape
+        ref_index, src_indices = reference_and_sources(cfg, n, ref_index)
+        if mask is None and not use_roi:
             mask = torch.ones((h, w), dtype=torch.bool, device=images.device)
+    if mask is None:
+        with span("svt.array.roi"):
+            if roi_mode == "face":
+                mask = face_mask(images[ref_index])
+            else:
+                roi = detect_face_ellipse(images[ref_index])
+                # unfound -> ungated (all True), as roi.face_mask does
+                mask = ellipse_mask((h, w), roi.center, roi.axes, roi.angle) | ~roi.found
 
-    shift_pad = _shift_warp_pad(cameras, ref_index, src_indices, cfg)
-    ps = cfg.plane_sweep
-    if ps.cascade and ps.num_planes <= ps.cascade_fine_planes:
-        # the whole range fits one fine window: the cascade would run the same sweep
-        cfg = cfg.override(**{"plane_sweep.cascade": False})
-    if cfg.plane_sweep.cascade:
-        if shift_pad <= 0:
-            raise ValueError("plane_sweep.cascade requires a translation-only rig "
-                             "(general rigs have non-linear per-plane warps)")
+    with span("svt.array.prep"):
+        shift_pad = _shift_warp_pad(cameras, ref_index, src_indices, cfg)
         ps = cfg.plane_sweep
-        band_offsets, _ = cascade_static_params(cameras, ref_index, src_indices, ps,
-                                                ps.cascade_fine_planes)
+        if ps.cascade and ps.num_planes <= ps.cascade_fine_planes:
+            # the whole range fits one fine window: the cascade would run the same sweep
+            cfg = cfg.override(**{"plane_sweep.cascade": False})
+        ps = cfg.plane_sweep
+        if ps.cascade:
+            if shift_pad <= 0:
+                raise ValueError("plane_sweep.cascade requires a translation-only rig "
+                                 "(general rigs have non-linear per-plane warps)")
+            band_offsets, _ = cascade_static_params(cameras, ref_index, src_indices, ps,
+                                                    ps.cascade_fine_planes)
+    if ps.cascade:
         # the full-range shift bound serves the fine pass too, as in the reference
         sweep = cascade_plane_sweep_depth(
             images, cameras, ref_index, src_indices, ps, cfg.sgm, mask=mask, backend=backend,
@@ -158,25 +163,28 @@ def array_depth_pipeline(
             fine_planes=ps.cascade_fine_planes, band_step=ps.cascade_band_step,
             band_offsets=band_offsets, mode=ps.cascade_mode)
     else:
-        sweep = plane_sweep_depth(images, cameras, ref_index, src_indices, cfg.plane_sweep,
-                                  cfg.sgm, mask=mask, backend=backend, shift_pad=shift_pad)
+        sweep = plane_sweep_depth(images, cameras, ref_index, src_indices, ps, cfg.sgm,
+                                  mask=mask, backend=backend, shift_pad=shift_pad)
 
     # multi-view photoconsistency refinement in disparity space
-    baselines, b0 = array_baselines(cameras, ref_index, src_indices)
-    f_px = float(np.broadcast_to(cameras.host().fx, (n,))[ref_index])
-    disparity = depth_to_disparity(sweep.depth, b0, f_px)
-    refined = disparity
-    rcfg = cfg.refine
-    # static disparity ceiling of the candidate stack: the nearest plane plus
-    # the largest accumulated refinement offsets
-    d_ceiling = f_px * b0 / cfg.plane_sweep.z_near + (
-        abs(rcfg.radius * rcfg.step) + 0.5 * abs(rcfg.step)) * max(rcfg.iterations, 1)
-    ref_img, aux = images[ref_index], torch.stack([images[i] for i in src_indices])
+    with span("svt.array.prep"):
+        baselines, b0 = array_baselines(cameras, ref_index, src_indices)
+        f_px = float(np.broadcast_to(cameras.host().fx, (n,))[ref_index])
+        disparity = depth_to_disparity(sweep.depth, b0, f_px)
+        refined = disparity
+        rcfg = cfg.refine
+        # static disparity ceiling of the candidate stack: the nearest plane
+        # plus the largest accumulated refinement offsets
+        d_ceiling = f_px * b0 / ps.z_near + (
+            abs(rcfg.radius * rcfg.step) + 0.5 * abs(rcfg.step)) * max(rcfg.iterations, 1)
+        ref_img, aux = images[ref_index], torch.stack([images[i] for i in src_indices])
+        refine_mask = mask & sweep.valid
     for _ in range(max(rcfg.iterations, 0)):
-        refined = multiview_refine(ref_img, aux, baselines, refined, mask=mask & sweep.valid,
+        refined = multiview_refine(ref_img, aux, baselines, refined, mask=refine_mask,
                                    radius=rcfg.radius, step=rcfg.step, window=rcfg.window,
                                    subpixel=rcfg.subpixel, max_disparity=d_ceiling).disparity
-    refined_depth = torch.where(sweep.valid, disparity_to_depth(refined, b0, f_px), 0.0)
-    return ArrayPipelineOutput(depth=sweep.depth, refined_depth=refined_depth,
-                               disparity=disparity, refined_disparity=refined,
-                               valid=sweep.valid, mask=mask, sweep=sweep)
+    with span("svt.array.prep"):
+        refined_depth = torch.where(sweep.valid, disparity_to_depth(refined, b0, f_px), 0.0)
+        return ArrayPipelineOutput(depth=sweep.depth, refined_depth=refined_depth,
+                                   disparity=disparity, refined_disparity=refined,
+                                   valid=sweep.valid, mask=mask, sweep=sweep)

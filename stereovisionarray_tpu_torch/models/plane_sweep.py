@@ -47,6 +47,7 @@ from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_ag
 from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census, reciprocal_f32
 from stereovisionarray_tpu_torch.ops.warp import homography_warp
 from stereovisionarray_tpu_torch.ops.wta import subpixel_refine, winner_take_all
+from stereovisionarray_tpu_torch.utils.profiling import span
 
 __all__ = [
     "PlaneSweepOutput",
@@ -335,21 +336,24 @@ def plane_sweep_depth(
 
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
     tensors), "cuda" (kernels, CUDA tensors only) or "torch" (plain PyTorch)."""
-    images = images.to(torch.float32)
-    vol, nv, _ = plane_sweep_volume(images, cameras, ref_index, src_indices, cfg,
-                                    shift_pad=shift_pad, backend=backend)
-    k, cost, conf, k_int = _volume_to_maps(vol, images[ref_index].contiguous(), cfg, sgm_cfg,
-                                           backend)
-    inv_near = 1.0 / cfg.z_near
-    inv_far = 1.0 / cfg.z_far
-    step = (inv_far - inv_near) / max(cfg.num_planes - 1, 1)
-    inv_depth = k * step + inv_near
-    depth = torch.reciprocal(inv_depth.clamp_min(1e-9))
-    views_at_win = torch.gather(nv, -1, k_int.to(torch.int64)[..., None])[..., 0]
-    valid = views_at_win >= min_views
-    if mask is not None:
-        valid = valid & mask
-    return PlaneSweepOutput(
-        depth=torch.where(valid, depth, 0.0), plane=k, cost=cost, valid=valid,
-        num_views=views_at_win, confidence=torch.where(valid, conf, 0.0),
-    )
+    with span("svt.sweep.volume"):
+        images = images.to(torch.float32)
+        vol, nv, _ = plane_sweep_volume(images, cameras, ref_index, src_indices, cfg,
+                                        shift_pad=shift_pad, backend=backend)
+    with span("svt.sweep.maps"):
+        k, cost, conf, k_int = _volume_to_maps(vol, images[ref_index].contiguous(), cfg,
+                                               sgm_cfg, backend)
+    with span("svt.sweep.depth"):
+        inv_near = 1.0 / cfg.z_near
+        inv_far = 1.0 / cfg.z_far
+        step = (inv_far - inv_near) / max(cfg.num_planes - 1, 1)
+        inv_depth = k * step + inv_near
+        depth = torch.reciprocal(inv_depth.clamp_min(1e-9))
+        views_at_win = torch.gather(nv, -1, k_int.to(torch.int64)[..., None])[..., 0]
+        valid = views_at_win >= min_views
+        if mask is not None:
+            valid = valid & mask
+        return PlaneSweepOutput(
+            depth=torch.where(valid, depth, 0.0), plane=k, cost=cost, valid=valid,
+            num_views=views_at_win, confidence=torch.where(valid, conf, 0.0),
+        )

@@ -90,9 +90,15 @@ def frame_sets_from_dirs(dirs: Sequence[str], half_res: bool = False,
 
 def _host_frames(frame_sets: Iterable[np.ndarray], transfer_dtype, times: List[float]):
     """Each frame-set as a contiguous host array in `transfer_dtype`, its
-    host time appended to `times`."""
-    for frames in frame_sets:
+    host time appended to `times`: the pull from `frame_sets` (a source's
+    read and decode) and the conversion."""
+    it = iter(frame_sets)
+    while True:
         t0 = time.perf_counter()
+        try:
+            frames = next(it)
+        except StopIteration:
+            return
         host = np.ascontiguousarray(frames)
         if transfer_dtype is not None:
             host = host.astype(transfer_dtype, copy=False)

@@ -42,6 +42,7 @@ from stereovisionarray_tpu_torch.ops.wta import (
     DisparityResult,
     disparity_from_volume,
 )
+from stereovisionarray_tpu_torch.utils.profiling import span
 
 
 class TwoViewOutput(NamedTuple):
@@ -101,46 +102,57 @@ def depth_to_disparity(depth: torch.Tensor, baseline: float, focal_px: float,
 
 def _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend) -> DisparityResult:
     D = cost_cfg.num_disparities
-    vol = fused_cost_volume_cuda(left, right, D, cost_cfg.census_window, cost_cfg.bt_weight,
-                                 cost_cfg.bt_clip, pen.dtype, backend)
-    p2_y, p2_x = p2_maps(left.shape, pen.p2, sum_dtype(pen.dtype), left.device, left,
-                         sgm_cfg.adaptive_p2, pen.p2_min)
-    total = sgm_aggregate_paths(vol, p2_y, p2_x, pen.p1, sgm_cfg.num_paths, backend)
-    maps = extract_maps(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0), backend,
-                        lr_max_diff=max(sgm_cfg.lr_max_diff, 0.0), right=False)
-    valid = maps.valid
-    if mask is not None:
-        valid = valid & mask
-    return DisparityResult(
-        disparity=torch.where(valid, maps.disparity, INVALID_DISPARITY),
-        cost=maps.cost,
-        valid=valid,
-        confidence=pkrn_confidence(maps.cost, maps.second, valid),
-    )
+    with span("svt.two_view.cost"):
+        vol = fused_cost_volume_cuda(left, right, D, cost_cfg.census_window, cost_cfg.bt_weight,
+                                     cost_cfg.bt_clip, pen.dtype, backend)
+    with span("svt.two_view.p2"):
+        p2_y, p2_x = p2_maps(left.shape, pen.p2, sum_dtype(pen.dtype), left.device, left,
+                             sgm_cfg.adaptive_p2, pen.p2_min)
+    with span("svt.two_view.sgm"):
+        total = sgm_aggregate_paths(vol, p2_y, p2_x, pen.p1, sgm_cfg.num_paths, backend)
+    with span("svt.two_view.extract"):
+        maps = extract_maps(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0), backend,
+                            lr_max_diff=max(sgm_cfg.lr_max_diff, 0.0), right=False)
+        valid = maps.valid
+        if mask is not None:
+            valid = valid & mask
+        disparity = torch.where(valid, maps.disparity, INVALID_DISPARITY)
+    with span("svt.two_view.confidence"):
+        confidence = pkrn_confidence(maps.cost, maps.second, valid)
+    return DisparityResult(disparity=disparity, cost=maps.cost, valid=valid,
+                           confidence=confidence)
 
 
 def _float_path(left, right, cost_cfg, sgm_cfg, mask, backend) -> DisparityResult:
     """The reference's float Pallas route: K1 float -> K7 -> K6."""
-    vol = fused_cost_volume_cuda(left, right, cost_cfg.num_disparities, cost_cfg.census_window,
-                                 cost_cfg.bt_weight, cost_cfg.bt_clip, torch.float32, backend)
-    p2_y, p2_x = p2_maps(left.shape, sgm_cfg.p2, torch.float32, left.device, left,
-                         sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
-    total = sgm_aggregate_float(vol, p2_y, p2_x, sgm_cfg.p1, sgm_cfg.num_paths, order="k7",
-                                backend=backend)
-    return extract_disparity(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0),
-                             max(sgm_cfg.lr_max_diff, 0.0), mask, backend)
+    with span("svt.two_view.cost"):
+        vol = fused_cost_volume_cuda(left, right, cost_cfg.num_disparities,
+                                     cost_cfg.census_window, cost_cfg.bt_weight,
+                                     cost_cfg.bt_clip, torch.float32, backend)
+    with span("svt.two_view.p2"):
+        p2_y, p2_x = p2_maps(left.shape, sgm_cfg.p2, torch.float32, left.device, left,
+                             sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
+    with span("svt.two_view.sgm"):
+        total = sgm_aggregate_float(vol, p2_y, p2_x, sgm_cfg.p1, sgm_cfg.num_paths, order="k7",
+                                    backend=backend)
+    with span("svt.two_view.extract"):  # the confidence comes out of the extraction
+        return extract_disparity(total, sgm_cfg.subpixel, max(sgm_cfg.uniqueness, 0.0),
+                                 max(sgm_cfg.lr_max_diff, 0.0), mask, backend)
 
 
 def _xla_path(left, right, cost_cfg, sgm_cfg, mask) -> DisparityResult:
     """The reference's XLA oracle route: float scans summed in path order,
     edge-clamped right view."""
-    vol = fused_cost_volume(left, right, cost_cfg.num_disparities, cost_cfg.census_window,
-                            cost_cfg.bt_weight, cost_cfg.bt_clip, torch.float32)
-    agg = sgm_aggregate(vol, sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.num_paths, left,
-                        sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
-    vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
-    return disparity_from_volume(agg, vol_right, sgm_cfg.subpixel, sgm_cfg.uniqueness,
-                                 sgm_cfg.lr_max_diff, mask, with_confidence=True)
+    with span("svt.two_view.cost"):
+        vol = fused_cost_volume(left, right, cost_cfg.num_disparities, cost_cfg.census_window,
+                                cost_cfg.bt_weight, cost_cfg.bt_clip, torch.float32)
+    with span("svt.two_view.sgm"):  # the P2 maps are built inside the aggregate
+        agg = sgm_aggregate(vol, sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.num_paths, left,
+                            sgm_cfg.adaptive_p2, sgm_cfg.p2_min)
+    with span("svt.two_view.extract"):
+        vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
+        return disparity_from_volume(agg, vol_right, sgm_cfg.subpixel, sgm_cfg.uniqueness,
+                                     sgm_cfg.lr_max_diff, mask, with_confidence=True)
 
 
 def two_view_disparity(
@@ -158,31 +170,35 @@ def two_view_disparity(
     backend: "auto" (kernels for CUDA tensors, plain PyTorch for CPU
     tensors), "cuda" (kernels, CUDA tensors only), "torch" (plain PyTorch
     on any device) or "xla" (the plain twin of the reference's XLA route)."""
-    left = left.to(torch.float32).contiguous()
-    right = right.to(torch.float32).contiguous()
-    pen = scaled_penalties(cost_cfg, sgm_cfg, cost_cfg.dtype)
-    if resolve_backend(left, backend) == "xla":
+    with span("svt.two_view.prep"):
+        left = left.to(torch.float32).contiguous()
+        right = right.to(torch.float32).contiguous()
+        pen = scaled_penalties(cost_cfg, sgm_cfg, cost_cfg.dtype)
+        route = resolve_backend(left, backend)
+    if route == "xla":
         res = _xla_path(left, right, cost_cfg, sgm_cfg, mask)
     elif pen.dtype == torch.float32:
         res = _float_path(left, right, cost_cfg, sgm_cfg, mask, backend)
     else:
         res = _integer_path(left, right, cost_cfg, sgm_cfg, pen, mask, backend)
 
-    disparity, valid = res.disparity, res.valid
-    # post-filters, in the reference's order; they can invalidate pixels, and
-    # the confidence below is zeroed there
-    if sgm_cfg.median_filter:
-        disparity = median3x3(disparity, valid)
-    if sgm_cfg.speckle_window > 0:
-        disparity, valid = speckle_filter(disparity, valid, max_diff=sgm_cfg.speckle_max_diff,
-                                          window=sgm_cfg.speckle_window,
-                                          min_support=sgm_cfg.speckle_min_support)
-    if sgm_cfg.fill_holes:
-        disparity, valid = fill_holes(disparity, valid)
-    depth = None
-    if baseline is not None and focal_px is not None:
-        depth = torch.where(valid, disparity_to_depth(disparity, baseline, focal_px), 0.0)
-    return TwoViewOutput(
-        disparity=disparity, valid=valid, cost=res.cost, depth=depth,
-        confidence=torch.where(valid, res.confidence, 0.0),
-    )
+    with span("svt.two_view.post"):
+        disparity, valid = res.disparity, res.valid
+        # post-filters, in the reference's order; they can invalidate pixels,
+        # and the confidence below is zeroed there
+        if sgm_cfg.median_filter:
+            disparity = median3x3(disparity, valid)
+        if sgm_cfg.speckle_window > 0:
+            disparity, valid = speckle_filter(disparity, valid,
+                                              max_diff=sgm_cfg.speckle_max_diff,
+                                              window=sgm_cfg.speckle_window,
+                                              min_support=sgm_cfg.speckle_min_support)
+        if sgm_cfg.fill_holes:
+            disparity, valid = fill_holes(disparity, valid)
+        depth = None
+        if baseline is not None and focal_px is not None:
+            depth = torch.where(valid, disparity_to_depth(disparity, baseline, focal_px), 0.0)
+        return TwoViewOutput(
+            disparity=disparity, valid=valid, cost=res.cost, depth=depth,
+            confidence=torch.where(valid, res.confidence, 0.0),
+        )

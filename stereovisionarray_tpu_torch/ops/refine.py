@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from stereovisionarray_tpu_torch.ops.warp import pixel_grid, warp_with_disparity
+from stereovisionarray_tpu_torch.utils.profiling import span
 
 __all__ = ["RefineOutput", "box_filter2d", "multiview_refine"]
 
@@ -109,28 +110,29 @@ def _fuse(diffs, oks, window: int):
 
 def _stack_costs(reference, aux_images, bl, disparity, radius, step, window, max_disparity):
     """Per-offset fused costs over the static candidate stack."""
-    h, w = reference.shape
-    num = 2 * radius + 1
-    offsets_np = (np.arange(num, dtype=np.float64) - radius) * step
-    off_hi = abs(radius * step)
-    v_iota, u_iota = pixel_grid(h, w, reference.device, reference.dtype)
+    with span("svt.refine.stack"):
+        h, w = reference.shape
+        num = 2 * radius + 1
+        offsets_np = (np.arange(num, dtype=np.float64) - radius) * step
+        off_hi = abs(radius * step)
+        v_iota, u_iota = pixel_grid(h, w, reference.device, reference.dtype)
 
-    stacks = []
-    for v in range(aux_images.shape[0]):
-        bu, bv = float(bl[v, 0]), float(bl[v, 1])
-        blen = float(np.hypot(bu, bv))
-        if blen < 1e-12:  # zero baseline: the warp is the identity at every candidate
-            ux = uy = 0.0
-            s_lo = s_hi = 0
-        else:
-            ux, uy = bu / blen, bv / blen
-            s_lo = int(np.floor(-off_hi * blen))
-            s_hi = int(np.ceil((max_disparity + off_hi) * blen))
-        pad_v = int(np.ceil(max(abs(s_lo), abs(s_hi)) * max(abs(ux), abs(uy)))) + 2
-        padded = torch.nn.functional.pad(aux_images[v], (pad_v,) * 4)
-        stack = torch.stack([_static_shift(padded, s * ux, s * uy, pad_v, h, w)
-                             for s in range(s_lo, s_hi + 1)])
-        stacks.append((stack, s_lo, s_hi, blen, bu, bv))
+        stacks = []
+        for v in range(aux_images.shape[0]):
+            bu, bv = float(bl[v, 0]), float(bl[v, 1])
+            blen = float(np.hypot(bu, bv))
+            if blen < 1e-12:  # zero baseline: the warp is the identity at every candidate
+                ux = uy = 0.0
+                s_lo = s_hi = 0
+            else:
+                ux, uy = bu / blen, bv / blen
+                s_lo = int(np.floor(-off_hi * blen))
+                s_hi = int(np.ceil((max_disparity + off_hi) * blen))
+            pad_v = int(np.ceil(max(abs(s_lo), abs(s_hi)) * max(abs(ux), abs(uy)))) + 2
+            padded = torch.nn.functional.pad(aux_images[v], (pad_v,) * 4)
+            stack = torch.stack([_static_shift(padded, s * ux, s * uy, pad_v, h, w)
+                                 for s in range(s_lo, s_hi + 1)])
+            stacks.append((stack, s_lo, s_hi, blen, bu, bv))
 
     def ok_mask(delta, blen, bu, bv):
         # a non-positive candidate disparity is no evidence (warp_with_disparity's gate)
@@ -143,42 +145,45 @@ def _stack_costs(reference, aux_images, bl, disparity, radius, step, window, max
         """stack entry j (integer steps, clipped to [s_lo, s_hi]) per pixel."""
         return torch.gather(stack, 0, (j.clamp(s_lo, s_hi) - s_lo)[None])[0]
 
-    q_ints = [int(round(step * b[3])) for b in stacks]
-    integer_spacing = all(abs(step * b[3] - q) < 1e-9 for b, q in zip(stacks, q_ints))
-    per = []
-    if integer_spacing:
-        # integer candidate spacing q: candidate o is the lerp of stack
-        # entries i0 + o*q and i0 + o*q + 1, t0 = (d - radius*step)*blen
-        warped_all = []
-        for (stack, s_lo, s_hi, blen, _, _), q in zip(stacks, q_ints):
-            t0 = (disparity - radius * step) * blen
-            i0f = torch.floor(t0)
-            f = t0 - i0f
-            i0 = i0f.to(torch.int64)
-            warped_all.append([(1.0 - f) * at(stack, s_lo, s_hi, i0 + o * q)
-                               + f * at(stack, s_lo, s_hi, i0 + o * q + 1)
-                               for o in range(num)])
-        for o, delta in enumerate(offsets_np):
-            oks = [ok_mask(float(delta), b[3], b[4], b[5]) for b in stacks]
-            diffs = [torch.where(ok, (reference - wv[o]).abs(), 0.0)
-                     for ok, wv in zip(oks, warped_all)]
-            per.append(_fuse(torch.stack(diffs), torch.stack(oks).to(reference.dtype), window))
-    else:
-        # hat blend: weights max(0, 1 - |t - s|) are non-zero only at
-        # s = floor(t) and floor(t) + 1
-        for delta in offsets_np:
-            diffs, oks = [], []
-            for stack, s_lo, s_hi, blen, bu, bv in stacks:
-                t = ((disparity + float(delta)) * blen).clamp(s_lo, s_hi)
-                s0 = torch.floor(t)
-                w0 = torch.clamp_min(1.0 - (t - s0).abs(), 0.0)
-                w1 = torch.clamp_min(1.0 - (t - (s0 + 1.0)).abs(), 0.0)
-                j = s0.to(torch.int64)
-                warped = w0 * at(stack, s_lo, s_hi, j) + w1 * at(stack, s_lo, s_hi, j + 1)
-                ok = ok_mask(float(delta), blen, bu, bv)
-                diffs.append(torch.where(ok, (reference - warped).abs(), 0.0))
-                oks.append(ok)
-            per.append(_fuse(torch.stack(diffs), torch.stack(oks).to(reference.dtype), window))
+    with span("svt.refine.costs"):
+        q_ints = [int(round(step * b[3])) for b in stacks]
+        integer_spacing = all(abs(step * b[3] - q) < 1e-9 for b, q in zip(stacks, q_ints))
+        per = []
+        if integer_spacing:
+            # integer candidate spacing q: candidate o is the lerp of stack
+            # entries i0 + o*q and i0 + o*q + 1, t0 = (d - radius*step)*blen
+            warped_all = []
+            for (stack, s_lo, s_hi, blen, _, _), q in zip(stacks, q_ints):
+                t0 = (disparity - radius * step) * blen
+                i0f = torch.floor(t0)
+                f = t0 - i0f
+                i0 = i0f.to(torch.int64)
+                warped_all.append([(1.0 - f) * at(stack, s_lo, s_hi, i0 + o * q)
+                                   + f * at(stack, s_lo, s_hi, i0 + o * q + 1)
+                                   for o in range(num)])
+            for o, delta in enumerate(offsets_np):
+                oks = [ok_mask(float(delta), b[3], b[4], b[5]) for b in stacks]
+                diffs = [torch.where(ok, (reference - wv[o]).abs(), 0.0)
+                         for ok, wv in zip(oks, warped_all)]
+                per.append(_fuse(torch.stack(diffs), torch.stack(oks).to(reference.dtype),
+                                 window))
+        else:
+            # hat blend: weights max(0, 1 - |t - s|) are non-zero only at
+            # s = floor(t) and floor(t) + 1
+            for delta in offsets_np:
+                diffs, oks = [], []
+                for stack, s_lo, s_hi, blen, bu, bv in stacks:
+                    t = ((disparity + float(delta)) * blen).clamp(s_lo, s_hi)
+                    s0 = torch.floor(t)
+                    w0 = torch.clamp_min(1.0 - (t - s0).abs(), 0.0)
+                    w1 = torch.clamp_min(1.0 - (t - (s0 + 1.0)).abs(), 0.0)
+                    j = s0.to(torch.int64)
+                    warped = w0 * at(stack, s_lo, s_hi, j) + w1 * at(stack, s_lo, s_hi, j + 1)
+                    ok = ok_mask(float(delta), blen, bu, bv)
+                    diffs.append(torch.where(ok, (reference - warped).abs(), 0.0))
+                    oks.append(ok)
+                per.append(_fuse(torch.stack(diffs), torch.stack(oks).to(reference.dtype),
+                                 window))
     return per
 
 
@@ -215,29 +220,33 @@ def multiview_refine(
                            max_disparity)
     else:
         if not exact_warp:
-            base = [warp_with_disparity(img, disparity, bl32[v])
-                    for v, img in enumerate(aux_images)]
-            shift_pad = int(np.ceil(abs(radius * step))) + 2
-        per = []
-        for delta in offsets_np.astype(np.float32):
-            if exact_warp:
-                d = disparity + float(delta)
-                pairs = [warp_with_disparity(img, d, bl32[v]) for v, img in enumerate(aux_images)]
-                warped = torch.stack([p[0] for p in pairs])
-                ok = torch.stack([p[1] for p in pairs])
-            else:
-                ws, oks = [], []
-                for v, (w0, o0) in enumerate(base):
-                    su, sv = delta * bl32[v, 0], delta * bl32[v, 1]
-                    ws.append(_uniform_shift(w0, su, sv, shift_pad))
-                    okf = _uniform_shift(o0.to(dtype), su, sv, shift_pad)
-                    oks.append(okf > 0.999)  # all four lerp corners valid
-                warped, ok = torch.stack(ws), torch.stack(oks)
-            diff = (reference[None] - warped).abs()
-            per.append(_fuse(torch.where(ok, diff, 0.0), ok.to(dtype), window))
-    costs = torch.stack([p[0] for p in per])
-    any_valid = torch.stack([p[1] for p in per])
-    return _select_best(costs, any_valid, disparity, mask, num, step, subpixel)
+            with span("svt.refine.stack"):
+                base = [warp_with_disparity(img, disparity, bl32[v])
+                        for v, img in enumerate(aux_images)]
+                shift_pad = int(np.ceil(abs(radius * step))) + 2
+        with span("svt.refine.costs"):
+            per = []
+            for delta in offsets_np.astype(np.float32):
+                if exact_warp:
+                    d = disparity + float(delta)
+                    pairs = [warp_with_disparity(img, d, bl32[v])
+                             for v, img in enumerate(aux_images)]
+                    warped = torch.stack([p[0] for p in pairs])
+                    ok = torch.stack([p[1] for p in pairs])
+                else:
+                    ws, oks = [], []
+                    for v, (w0, o0) in enumerate(base):
+                        su, sv = delta * bl32[v, 0], delta * bl32[v, 1]
+                        ws.append(_uniform_shift(w0, su, sv, shift_pad))
+                        okf = _uniform_shift(o0.to(dtype), su, sv, shift_pad)
+                        oks.append(okf > 0.999)  # all four lerp corners valid
+                    warped, ok = torch.stack(ws), torch.stack(oks)
+                diff = (reference[None] - warped).abs()
+                per.append(_fuse(torch.where(ok, diff, 0.0), ok.to(dtype), window))
+    with span("svt.refine.select"):
+        costs = torch.stack([p[0] for p in per])
+        any_valid = torch.stack([p[1] for p in per])
+        return _select_best(costs, any_valid, disparity, mask, num, step, subpixel)
 
 
 def _select_best(costs, any_valid, disparity, mask, num, step, subpixel) -> RefineOutput:

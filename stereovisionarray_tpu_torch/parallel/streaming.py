@@ -8,7 +8,9 @@ step is enqueued on the current stream, so the host decodes and enqueues
 frame t+1 while the card computes frame t. Results come out in order and only
 the consumer waits for them. How far ahead the host really gets is bounded by
 the step itself: a step whose launches fill the device's launch queue blocks
-the host inside it.
+the host inside it. Pulling a frame from the source (``svt.stream.next``)
+and its copy (``svt.stream.copy``) are stage spans (``utils.profiling.span``);
+the step's own stages are the pipeline's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Any, Callable, Iterable, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from stereovisionarray_tpu_torch.utils.profiling import span
+
 __all__ = ["StreamExecutor", "throughput_stream", "to_device"]
 
 
@@ -28,11 +32,13 @@ def to_device(frame, device) -> torch.Tensor:
     unchanged. To a CUDA device it is staged in pinned memory and copied
     without waiting for the stream; the caching host allocator keeps the
     staging buffer until the copy has run."""
-    t = frame if isinstance(frame, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(frame))
-    device = torch.device(device)
-    if device.type != "cuda" or t.device.type != "cpu":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with span("svt.stream.copy"):
+        t = frame if isinstance(frame, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(frame))
+        device = torch.device(device)
+        if device.type != "cuda" or t.device.type != "cpu":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 class StreamExecutor:
@@ -56,7 +62,8 @@ class StreamExecutor:
         while not exhausted or inflight:
             while not exhausted and len(inflight) < self.depth:
                 try:
-                    host_frame = next(it)
+                    with span("svt.stream.next"):
+                        host_frame = next(it)
                 except StopIteration:
                     exhausted = True
                     break

@@ -16,6 +16,7 @@ from stereovisionarray_tpu_torch.utils.debug import (  # noqa: F401
 from stereovisionarray_tpu_torch.utils.obslog import MetricsLogger  # noqa: F401
 from stereovisionarray_tpu_torch.utils.profiling import (  # noqa: F401
     StageTimer,
+    span,
     time_fn,
     trace,
 )

@@ -5,7 +5,9 @@
  - :class:`StageTimer`: wall-clock per named stage, each stage fenced by a
    synchronize of the card (the reference's ``jax.effects_barrier``);
  - :func:`trace`: ``torch.profiler`` over the host and, where there is one,
-   the card, written as a Chrome trace.
+   the card, written as a Chrome trace;
+ - :func:`span`: the program's own stage spans (``svt.*``), recorded only
+   while a profiler runs.
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ import time
 from typing import Any, Callable, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from stereovisionarray_tpu_torch.utils.debug import leaves_with_paths
 
-__all__ = ["StageTimer", "time_fn", "trace"]
+__all__ = ["StageTimer", "span", "time_fn", "trace"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _fence(tree: Any) -> None:
@@ -84,7 +89,10 @@ def trace(log_dir: str):
     """Profile the block: ``with trace('traces/run'): run()`` writes
     ``trace.json`` (Chrome trace format, host ops and, on a CUDA machine,
     the card's kernels) into `log_dir`; open it in Perfetto or
-    ``chrome://tracing``. Yields the profiler."""
+    ``chrome://tracing``. Yields the profiler. The program's stage spans
+    (``svt.two_view.*``, ``svt.array.*``, ``svt.sweep.*``, ``svt.refine.*``,
+    ``svt.stream.*``; :func:`span`) appear in it as host ranges on the same
+    clock as the kernels they launch."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -92,3 +100,24 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _profiler_on() -> bool:
+    """torch's own flag: set while a ``torch.profiler.profile`` is entered."""
+    flag = getattr(_autograd_profiler, "_is_profiler_enabled", None)
+    return torch._C._autograd._profiler_enabled() if flag is None else flag
+
+
+def span(name: str):
+    """A stage span: ``with span("svt.two_view.sgm"): ...``.
+
+    While a profiler runs it is ``torch.profiler.record_function(name)``, a
+    host range in the profiler's record, on the clock of the card's kernels
+    and copies. Otherwise it is one shared null context, so a run with no
+    profiler pays a flag test and creates no range. The program's spans
+    mark the stage boundaries of its hot paths, one level deep: no ``svt.*``
+    span opens inside another, so a profile's gaps on the card are named by
+    the stage that held the host."""
+    if _profiler_on():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -8,6 +8,7 @@ package's loader does; the executor keeps at most `depth` frames in flight."""
 
 import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -209,6 +210,22 @@ def test_frame_sets_from_dirs_round_trip(setup, tmp_path):
     assert np.array_equal(half, frames[0][:, ::2, ::2])
     with pytest.raises(ValueError, match="no images"):
         next(frame_sets_from_dirs([str(tmp_path)]))
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_decode_s_counts_the_sources_read(setup, chunk):
+    """A source that takes 20 ms to hand over each set (a read and decode)
+    shows in every set's decode_s, per-set and chunked alike."""
+    cams, frames, _ = setup
+
+    def slow_source():
+        for f in frames[:2]:
+            time.sleep(0.02)
+            yield f
+
+    results = list(stream_depth_maps_chunked(slow_source(), cams, CFG, ref_index=4, chunk=chunk,
+                                             device="cpu"))
+    assert len(results) == 2 and all(r.decode_s >= 0.02 for r in results)
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3])
