@@ -177,6 +177,14 @@ The command line adds, after the SfM phases:
     the fixture's gray PNGs to phase 5's images);
  6g. each subcommand's wall beside the direct call it wraps (the CLI's own
     decode, copies and writes), and the `python -m` process's wall.
+The refinement's kernel R (csrc/refine.cu, the static-stack pass) adds:
+ 4b. on the array main path (CROSS and to_center), three R launches a pass,
+    the pipeline bit-exact to backend="torch" (the plain refinement), and R
+    against its plain route at both passes (4 views whole-step, 24 views hat
+    blend, radius 5, window 21, the sweep's disparities), every output,
+    limit 0; the array cascade and ZNCC paths must launch R too;
+ 6b. R at both passes beside its plain route (R's row of the kernels line
+    is the CROSS pass).
 The line before the last lists every kernel with its launches, parity error,
 wrapper time, device time, plain time, bound (the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s) and the wrapper and device
@@ -1825,9 +1833,12 @@ def main() -> None:
     from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
     from stereovisionarray_tpu_torch.models.array_pipeline import (
         _shift_warp_pad,
+        array_baselines,
         array_depth_pipeline,
         reference_and_sources,
     )
+    from stereovisionarray_tpu_torch.ops.refine import multiview_refine
+    from stereovisionarray_tpu_torch.ops.refine_cuda import refine_pass
     from stereovisionarray_tpu_torch.models.plane_sweep import translation_shifts
     from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
     from stereovisionarray_tpu_torch.evaluation import (
@@ -2273,7 +2284,12 @@ def main() -> None:
                  SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True))
     bench_pair = stereo_pair(torch, BENCH_SHAPE[0], BENCH_SHAPE[1], seed=0)
     entry_pair = stereo_pair(torch, ENTRY_SHAPE[0], ENTRY_SHAPE[1], seed=0, offset=16)
-    all_kernels = kernels + [k8, k9, k9_2d] + float_kernels
+    # R: the refinement's static-stack pass (three launches: rows, columns,
+    # select); the reference has no Pallas kernel here
+    kr = {"name": "R refine", "fn": refine_pass, "max_abs_err": 0.0,
+          "source": "stereovisionarray_tpu_torch/csrc/refine.cu",
+          "replaces": "stereovisionarray_tpu/ops/refine.py (plain, no Pallas kernel)"}
+    all_kernels = kernels + [k8, k9, k9_2d, kr] + float_kernels
     real_launch = _native.launch
     # (H, W, D, volume bytes, LR, tile) of every extraction launched on a path
     extract_launches = collections.Counter()
@@ -2356,10 +2372,13 @@ def main() -> None:
         lambda: {name: array_depth_pipeline(images, cams, cfg) for name, cfg in array_cfgs.items()})
     for k in all_kernels:
         k["array_launches"] = arr_counts[k["name"]]
-    array_kernels = [k8["name"], "K2/K3 sgm_paths", "K4 extract_maps"]
+    array_kernels = [k8["name"], "K2/K3 sgm_paths", "K4 extract_maps", kr["name"]]
     missing = [n for n in array_kernels if arr_counts[n] == 0]
     if missing:
         fail(f"the array path never launched {missing}")
+    if arr_counts[kr["name"]] != 3 * len(array_cfgs):
+        fail(f"the array path's refinement launched {arr_counts[kr['name']]} kernels: want "
+             f"three a pass")
     for name, cfg in array_cfgs.items():
         out = array_outs[name]
         plain = array_depth_pipeline(images, cams, cfg, backend="torch")
@@ -2378,6 +2397,34 @@ def main() -> None:
             fail(f"array path ({name}) differs from the plain path or is not finite")
         if tuple(out.refined_depth.shape) != (AH, AW):
             fail(f"array path ({name}) depth shape {tuple(out.refined_depth.shape)}")
+
+    # R against its plain route at the main path's passes: CROSS (4 views,
+    # whole-step candidates) and to_center (24 views, the hat blend), radius
+    # 5, window 21, on the sweep's disparities; every output, limit 0
+    def refine_call(name):
+        cfg, out = array_cfgs[name], array_outs[name]
+        ref, src = reference_and_sources(cfg, rows * cols)
+        bl, _ = array_baselines(cams, ref, src)
+        rc = cfg.refine
+        ceiling = float(out.disparity.max()) + 2 * abs(rc.radius * rc.step)
+        aux = images[list(src)].to(torch.float32)
+        return lambda b: multiview_refine(images[ref].to(torch.float32), aux, bl, out.disparity,
+                                          mask=out.mask & out.valid, radius=rc.radius,
+                                          step=rc.step, window=rc.window, subpixel=rc.subpixel,
+                                          max_disparity=ceiling, backend=b)
+
+    refine_calls = {name: refine_call(name) for name in array_cfgs}
+    for name, call in refine_calls.items():
+        got, want = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        errs = {f: max_err(torch, getattr(got, f), getattr(want, f)) for f in got._fields}
+        kr["max_abs_err"] = max(kr["max_abs_err"], *errs.values())
+        rc = array_cfgs[name].refine
+        emit({"phase": "refine_parity", "case": name, "shape": list(got.cost.shape),
+              "views": len(reference_and_sources(array_cfgs[name], rows * cols)[1]),
+              "radius": rc.radius, "window": rc.window, "max_abs_err": errs, **tag})
+        if any(e != 0.0 for e in errs.values()):
+            fail(f"R differs from its plain route at the array path's {name} pass: {errs}")
 
     # ---- 4c. cascade main paths -----------------------------------------------
     tv_left, tv_right, tv_gt, tv_mask = two_view_cascade_scene(torch, images.device)
@@ -2478,7 +2525,7 @@ def main() -> None:
     ps_pad = _shift_warp_pad(cams, ps_ref, ps_src, cross_cfg)
     float_runs = {
         "array_zncc": (lambda b: array_depth_pipeline(images, cams, zncc_cfg, backend=b),
-                       [k7["name"], k6["name"]],
+                       [k7["name"], k6["name"], kr["name"]],
                        ("depth", "refined_depth", "disparity", "refined_disparity", "valid")),
         "plane_sweep_no_sgm": (
             lambda b: plane_sweep_depth(images, cams, ps_ref, ps_src, cross_cfg.plane_sweep, None,
@@ -2729,6 +2776,18 @@ def main() -> None:
               "device_ms": device_ms(torch, lambda: call("cuda"), TIMED_FRAMES),
               "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
 
+    # R at the array path's passes; bound as the CROSS pass's
+    for name, call in refine_calls.items():
+        k_ms = cuda_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        dev_ms = device_ms(torch, lambda: call("cuda"), TIMED_FRAMES)
+        p_ms = cuda_ms(torch, lambda: call("torch"), PLAIN_FRAMES, warmup=1)
+        emit({"phase": "timing", "kernel": kr["name"], "run": name, "shape": [AH, AW],
+              "iters": TIMED_FRAMES, "ms": k_ms, "device_ms": dev_ms,
+              "plain_iters": PLAIN_FRAMES, "plain_ms": p_ms, **tag})
+        kr[f"ms_{name}"], kr[f"device_ms_{name}"], kr[f"plain_ms_{name}"] = k_ms, dev_ms, p_ms
+    kr["ms"], kr["device_ms"], kr["plain_ms"] = (kr["ms_cross"], kr["device_ms_cross"],
+                                                 kr["plain_ms_cross"])
+
     # ---- 6c. cascade timing ----------------------------------------------------
     runs = {
         "two_view_cascade": lambda b: two_view_cascade_run(tv_left, tv_right, backend=b),
@@ -2906,6 +2965,9 @@ def main() -> None:
         k10["name"]: (HWD * 8 + HW * 4, 8 * HWD * 8 + 7 * HWD),
         k11["name"]: (HWD * 12 + HW * 4, 6 * HWD * 8 + 4 * HWD),
         k12["name"]: (HWD * 4 + 2 * HW * 4 + HW * 13, 8 * HWD * 8 + 13 * HWD),
+        # the CROSS pass: reference, disparity, mask and 4 views read, four
+        # outputs written; ~30 operations a view term of 11 offsets
+        kr["name"]: (AH * AW * (4 * 6 + 1 + 13), 11 * 4 * AH * AW * 30),
     }
     for k in all_kernels:
         nbytes, ops = bounds[k["name"]]

@@ -6,7 +6,8 @@ per file, in parallel), into one shared library under ``build/`` (listed in
 library. The library is loaded with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, and every entry
 point returns ``cudaGetLastError()``, which :func:`launch` turns into an
-exception. Nothing here runs at import time; the CPU tests import every module
+exception (the one query, ``svt_refine_refusal``, returns a code that
+:func:`call` hands back). Nothing here runs at import time; the CPU tests import every module
 of the package on a machine with neither nvcc nor a card.
 
 The launch path is lean because the port's small kernels (the hat sampler,
@@ -69,6 +70,14 @@ _SIGNATURES = {
     "svt_hat_sample": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # values, t_rows, t_cols, out, batch, h, w, k0, k1, stream
     "svt_hat_sample_2d": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # ref, aux, disp, table, c1, n1, c2, n2, views, num, h, w, r, box, integer,
+    # rs, stream
+    "svt_refine_costs": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # views, h, w, box, stream (unused): 0 or why svt_refine_costs refuses
+    "svt_refine_refusal": (_I, _I, _I, _I, _P),
+    # c2, n2, disp, mask, out_disp, out_delta, out_cost, out_valid, num, h, w,
+    # r, box, subpixel, step, stream
+    "svt_refine_select": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None
@@ -155,18 +164,21 @@ def timed_build() -> float:
     return time.perf_counter() - t0
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry point `name` on `device`'s current stream; raise on any
-    CUDA error the launch reports. `device` is a CUDA tensor's device (its
-    index is set)."""
+def call(name: str, device: torch.device, *args) -> int:
+    """Call C entry point `name` on `device`'s current stream and return
+    what it returns. `device` is a CUDA tensor's device (its index is set)."""
     if not _FNS:
         library()
     index = device.index
     if torch._C._cuda_getDevice() == index:
-        err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
-    else:  # a kernel runs on the current device: switch to the tensor's
-        with torch.cuda.device(index):
-            err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
+        return _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):  # a kernel runs on the current device: switch to the tensor's
+        return _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """:func:`call`, raising on any CUDA error the launch reports."""
+    err = call(name, device, *args)
     if err != 0:
         msg = _lib.svt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -182,7 +182,8 @@ def array_depth_pipeline(
     for _ in range(max(rcfg.iterations, 0)):
         refined = multiview_refine(ref_img, aux, baselines, refined, mask=refine_mask,
                                    radius=rcfg.radius, step=rcfg.step, window=rcfg.window,
-                                   subpixel=rcfg.subpixel, max_disparity=d_ceiling).disparity
+                                   subpixel=rcfg.subpixel, max_disparity=d_ceiling,
+                                   backend=backend).disparity
     with span("svt.array.prep"):
         refined_depth = torch.where(sweep.valid, disparity_to_depth(refined, b0, f_px), 0.0)
         return ArrayPipelineOutput(depth=sweep.depth, refined_depth=refined_depth,

@@ -1,7 +1,8 @@
 """Plain PyTorch ops (census, cost volumes, SGM, WTA, confidence, warps,
 refinement, post-filters). The CUDA kernel wrappers (``ops/*_cuda.py``,
-``ops/hatsample.py``) are imported by the pipelines that launch them, never
-here, so importing this package builds nothing."""
+``ops/hatsample.py``) are imported by the pipelines that launch them (the
+refinement imports its own when it takes the kernels' route), never here,
+so importing this package builds nothing."""
 
 from stereovisionarray_tpu_torch.ops.census import (  # noqa: F401
     census_transform,

@@ -16,16 +16,25 @@ warp paths of the reference are kept:
    as uniform shifts of that warp;
  - ``exact_warp``: every view re-warped at every candidate.
 
-The reference has no Pallas kernel here, so neither has the port.
+The reference has no Pallas kernel here. On the card the static candidate
+stack's pass runs as hand-written CUDA instead (``ops/refine_cuda.py``,
+``csrc/refine.cu``): three launches a pass that give this route's bits on
+the card, its sums taken in the order PyTorch's own CUDA kernels take them.
+``backend`` chooses the route as for every kernel of the package; both
+routes read one host plan of the stack (:func:`stack_plan`), and the plain
+route stays the CPU route and the twin the kernels are tested against.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+import warnings
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from stereovisionarray_tpu_torch.backend import resolve_backend
 from stereovisionarray_tpu_torch.ops.warp import pixel_grid, warp_with_disparity
 from stereovisionarray_tpu_torch.utils.profiling import span
 
@@ -83,11 +92,89 @@ def _uniform_shift(img: torch.Tensor, su: float, sv: float, pad: int,
     return top * float(np.float32(1.0) - np.float32(fv)) + bot * fv
 
 
-def _static_shift(padded: torch.Tensor, su: float, sv: float, pad: int, h: int,
-                  w: int) -> torch.Tensor:
-    """A `pad`-padded image sampled at the static subpixel shift (su, sv)."""
-    j0, i0 = int(np.floor(sv)), int(np.floor(su))
-    fv, fu = float(sv - j0), float(su - i0)
+class _ViewPlan(NamedTuple):
+    bu: float  # the view's baseline, host float64
+    bv: float
+    blen: float
+    s_lo: int  # its stack spans the integer steps [s_lo, s_hi] along the line
+    s_hi: int
+    pad: int  # zero padding that holds every step's shift
+    shifts: Tuple[Tuple[int, int, float, float], ...]  # per step: (j0, i0, fv, fu)
+
+
+class _StackPlan(NamedTuple):
+    views: Tuple[_ViewPlan, ...]
+    q: Optional[Tuple[int, ...]]  # integer candidate spacing per view, or None (hat blend)
+    table: np.ndarray  # the plan packed for the fused kernels (_kernel_table); never write it
+
+
+def stack_plan(bl: np.ndarray, radius: int, step: float, max_disparity: float) -> _StackPlan:
+    """The static candidate stack's host plan, which both routes read, and
+    its table for the kernels. The scalars keep their types (a numpy float32
+    ceiling computes its bounds in float32), so their types key the cache
+    beside their values. Shared between callers: read it, never write it."""
+    return _stack_plan_cached(np.asarray(bl, np.float64).tobytes(), len(bl), radius, step,
+                              max_disparity, type(step), type(max_disparity))
+
+
+@functools.lru_cache(maxsize=32)
+def _stack_plan_cached(bl_bytes: bytes, num_views: int, radius: int, step: float,
+                       max_disparity: float, *types) -> _StackPlan:
+    bl = np.frombuffer(bl_bytes, np.float64).reshape(num_views, 2)
+    off_hi = abs(radius * step)
+    views = []
+    for v in range(num_views):
+        bu, bv = float(bl[v, 0]), float(bl[v, 1])
+        blen = float(np.hypot(bu, bv))
+        if blen < 1e-12:  # zero baseline: the warp is the identity at every candidate
+            ux = uy = 0.0
+            s_lo = s_hi = 0
+        else:
+            ux, uy = bu / blen, bv / blen
+            s_lo = int(np.floor(-off_hi * blen))
+            s_hi = int(np.ceil((max_disparity + off_hi) * blen))
+        pad_v = int(np.ceil(max(abs(s_lo), abs(s_hi)) * max(abs(ux), abs(uy)))) + 2
+        shifts = []
+        for s in range(s_lo, s_hi + 1):
+            su, sv = s * ux, s * uy
+            j0, i0 = int(np.floor(sv)), int(np.floor(su))
+            shifts.append((j0, i0, float(sv - j0), float(su - i0)))
+        views.append(_ViewPlan(bu, bv, blen, s_lo, s_hi, pad_v, tuple(shifts)))
+    q_ints = tuple(int(round(step * p.blen)) for p in views)
+    integer_spacing = all(abs(step * p.blen - q) < 1e-9 for p, q in zip(views, q_ints))
+    q = q_ints if integer_spacing else None
+    return _StackPlan(tuple(views), q, _kernel_table(views, q, radius, step))
+
+
+def _kernel_table(views, q, radius: int, step: float) -> np.ndarray:
+    """The fused kernels' int32 table of a plan (layout in csrc/refine.cu):
+    the offsets, per view its bounds, entry offset, candidate spacing and
+    float32 baseline, then per stack step its integer shift, whether it is
+    exact and its float32 weights: each float as PyTorch rounds the plain
+    route's Python scalar (float64) to float32."""
+    num, f32 = 2 * radius + 1, np.float32
+    offsets = ((np.arange(num, dtype=np.float64) - radius) * step).astype(f32)
+    first = -(-(num + 8 * len(views)) // 8) * 8
+    table = np.zeros(first + 8 * sum(len(p.shifts) for p in views), np.int32)
+    table[:num] = offsets.view(np.int32)
+    entry = first
+    for v, p in enumerate(views):
+        table[num + 8 * v: num + 8 * v + 4] = (p.s_lo, p.s_hi, entry, q[v] if q else 0)
+        table[num + 8 * v + 4: num + 8 * v + 7] = np.array([p.bu, p.bv, p.blen], f32).view(np.int32)
+        ints = np.array([sh[:2] for sh in p.shifts], np.int32)  # (S, 2): j0, i0
+        fv, fu = np.array([sh[2:] for sh in p.shifts], np.float64).T
+        rows = table[entry: entry + 8 * len(p.shifts)].reshape(-1, 8)
+        rows[:, 0], rows[:, 1] = ints[:, 1], ints[:, 0]
+        rows[:, 2] = (fu == 0.0) & (fv == 0.0)
+        rows[:, 4:] = np.stack([1.0 - fu, fu, 1.0 - fv, fv], 1).astype(f32).view(np.int32)
+        entry += 8 * len(p.shifts)
+    return table
+
+
+def _static_shift(padded: torch.Tensor, shift, pad: int, h: int, w: int) -> torch.Tensor:
+    """A `pad`-padded image sampled at a static subpixel shift, given as its
+    integer part and fraction (j0, i0, fv, fu)."""
+    j0, i0, fv, fu = shift
     y0, x0 = pad + j0, pad + i0
 
     def sl(dy, dx):
@@ -108,31 +195,27 @@ def _fuse(diffs, oks, window: int):
     return torch.where(total_n > 0, fused, _BIG), total_n > 0
 
 
+def _build_stacks(aux_images, plan: _StackPlan):
+    """Each view's (S, H, W) stack: its image at every integer step along its
+    epipolar line."""
+    h, w = aux_images.shape[-2:]
+    stacks = []
+    for img, p in zip(aux_images, plan.views):
+        padded = torch.nn.functional.pad(img, (p.pad,) * 4)
+        stacks.append(torch.stack([_static_shift(padded, sh, p.pad, h, w) for sh in p.shifts]))
+    return stacks
+
+
 def _stack_costs(reference, aux_images, bl, disparity, radius, step, window, max_disparity):
     """Per-offset fused costs over the static candidate stack."""
     with span("svt.refine.stack"):
+        plan = stack_plan(bl, radius, step, max_disparity)
         h, w = reference.shape
         num = 2 * radius + 1
         offsets_np = (np.arange(num, dtype=np.float64) - radius) * step
-        off_hi = abs(radius * step)
         v_iota, u_iota = pixel_grid(h, w, reference.device, reference.dtype)
-
-        stacks = []
-        for v in range(aux_images.shape[0]):
-            bu, bv = float(bl[v, 0]), float(bl[v, 1])
-            blen = float(np.hypot(bu, bv))
-            if blen < 1e-12:  # zero baseline: the warp is the identity at every candidate
-                ux = uy = 0.0
-                s_lo = s_hi = 0
-            else:
-                ux, uy = bu / blen, bv / blen
-                s_lo = int(np.floor(-off_hi * blen))
-                s_hi = int(np.ceil((max_disparity + off_hi) * blen))
-            pad_v = int(np.ceil(max(abs(s_lo), abs(s_hi)) * max(abs(ux), abs(uy)))) + 2
-            padded = torch.nn.functional.pad(aux_images[v], (pad_v,) * 4)
-            stack = torch.stack([_static_shift(padded, s * ux, s * uy, pad_v, h, w)
-                                 for s in range(s_lo, s_hi + 1)])
-            stacks.append((stack, s_lo, s_hi, blen, bu, bv))
+        stacks = [(stack, p.s_lo, p.s_hi, p.blen, p.bu, p.bv)
+                  for stack, p in zip(_build_stacks(aux_images, plan), plan.views)]
 
     def ok_mask(delta, blen, bu, bv):
         # a non-positive candidate disparity is no evidence (warp_with_disparity's gate)
@@ -146,10 +229,9 @@ def _stack_costs(reference, aux_images, bl, disparity, radius, step, window, max
         return torch.gather(stack, 0, (j.clamp(s_lo, s_hi) - s_lo)[None])[0]
 
     with span("svt.refine.costs"):
-        q_ints = [int(round(step * b[3])) for b in stacks]
-        integer_spacing = all(abs(step * b[3] - q) < 1e-9 for b, q in zip(stacks, q_ints))
+        q_ints = plan.q
         per = []
-        if integer_spacing:
+        if q_ints is not None:
             # integer candidate spacing q: candidate o is the lerp of stack
             # entries i0 + o*q and i0 + o*q + 1, t0 = (d - radius*step)*blen
             warped_all = []
@@ -199,6 +281,7 @@ def multiview_refine(
     subpixel: bool = True,
     exact_warp: bool = False,
     max_disparity: Optional[float] = None,
+    backend: str = "auto",
 ) -> RefineOutput:
     """Refine `disparity` (H, W) against aux views (V, H, W).
 
@@ -207,15 +290,41 @@ def multiview_refine(
     mask: optional (H, W) ROI; pixels outside pass through. max_disparity:
     the static disparity ceiling that enables the candidate-stack path.
     exact_warp: re-warp every view at every candidate (the literal objective);
-    otherwise, without a ceiling, each view is warped once."""
+    otherwise, without a ceiling, each view is warped once.
+
+    backend: "auto" runs the candidate-stack pass of float32 CUDA tensors on
+    the fused kernels, which give the plain route's bits on the card; "cuda"
+    demands them (any dtype the kernels refuse raises); "torch" and "xla" run
+    the plain route on any device. The kernels take 1 to 63 views, at least
+    two rows and two columns with a window wider than 1, and a row whose scan
+    fits in a block's shared memory (about 28,000 columns on an H100):
+    outside those limits "cuda" raises and "auto" warns and runs the plain
+    route. Warp-once and exact_warp have no kernel: they run the plain route
+    on every backend."""
     num = 2 * radius + 1
     offsets_np = (np.arange(num, dtype=np.float64) - radius) * step
     bl = np.asarray(baselines_uv.detach().cpu() if torch.is_tensor(baselines_uv)
                     else baselines_uv, dtype=np.float64)
     bl32 = bl.astype(np.float32)
     dtype = reference.dtype
+    route = resolve_backend(reference, backend)
 
     if not exact_warp and max_disparity is not None and max_disparity > 0:
+        if route == "cuda" and (backend == "cuda" or all(
+                t.dtype == torch.float32 for t in (reference, aux_images, disparity))):
+            from stereovisionarray_tpu_torch.ops import refine_cuda
+
+            h, w = reference.shape[-2:]
+            refused = refine_cuda.refusal(aux_images.shape[0], h, w, window, reference.device)
+            if refused is None:
+                return RefineOutput(*refine_cuda.refine_pass(
+                    reference, aux_images, bl, disparity, mask, radius, step, window, subpixel,
+                    max_disparity))
+            if backend == "cuda":
+                raise ValueError(f"backend='cuda': the refinement's kernels refuse this pass: "
+                                 f"{refused}")
+            warnings.warn(f"the refinement's kernels refuse this pass ({refused}): it runs the "
+                          "plain route, thousands of launches", RuntimeWarning, stacklevel=2)
         per = _stack_costs(reference, aux_images, bl, disparity, radius, step, window,
                            max_disparity)
     else:

@@ -936,13 +936,13 @@ def test_array_pipeline_with_cameras_on_the_card_does_not_wait(rng, cascade):
     """A rig whose tensors live on the card answers the host's questions
     (shift bound, shift tables, baselines, focal length) from its numpy copy,
     so array_depth_pipeline returns while a spin runs on the card, with the
-    outputs of the same rig on the host. The refinement is left out
-    (refine.iterations 0): its launches fill the device's launch queue, which
-    blocks the host by itself (ROADMAP.md queue 3)."""
+    outputs of the same rig on the host. The refinement pass runs too
+    (refine.iterations 1): its fused kernels are three launches, which the
+    device's launch queue holds."""
     from stereovisionarray_tpu_torch.models import array_depth_pipeline
 
     cams, images, cfg = _array_scene(h=48, w=64, planes=64)
-    cfg = cfg.override(**{"refine.iterations": 0, "plane_sweep.cascade": cascade,
+    cfg = cfg.override(**{"refine.iterations": 1, "plane_sweep.cascade": cascade,
                           "plane_sweep.cascade_fine_planes": 24})
     cams_cuda = cams.to("cuda")
     assert cams_cuda.fx.is_cuda and cams_cuda.host() is cams.host()
@@ -1132,8 +1132,8 @@ def test_calibrated_depth_makes_no_synchronizing_call_and_matches_plain(calibrat
 
 
 def test_calibrated_depth_does_not_wait(calibrated):
-    """Path (b) on two views of the calibrated rig (one source, 4 planes, no
-    refinement: launches the device's queue holds) returns while a spin
+    """Path (b) on two views of the calibrated rig (one source, 4 planes, one
+    refinement pass: launches the device's queue holds) returns while a spin
     runs on the card: the rig answers the host from its numpy copy."""
     from stereovisionarray_tpu_torch.models import array_depth_pipeline
 
@@ -1142,11 +1142,11 @@ def test_calibrated_depth_does_not_wait(calibrated):
     cams = out.cameras[[3, 4]]
     assert cams.host_fields is not None and cams.fx.is_cuda
     cfg = calibrated[2].override(**{"camera.rows": 1, "camera.cols": 2,
-                                    "plane_sweep.num_planes": 4, "refine.iterations": 0})
+                                    "plane_sweep.num_planes": 4, "refine.iterations": 1})
     waited_not, got = _queued_behind_a_spin(lambda: array_depth_pipeline(views, cams, cfg))
     assert waited_not
     want = array_depth_pipeline(views, cams, cfg, backend="torch")
-    for field in ("depth", "disparity", "valid"):
+    for field in ("depth", "refined_depth", "disparity", "refined_disparity", "valid"):
         _same(getattr(got, field), getattr(want, field))
 
 
@@ -1200,9 +1200,10 @@ def test_cli_on_the_card_writes_the_cpu_artifacts(rng, tmp_path, launched, comma
     """`two-view` (int16 costs: K1, K2/K3, K4 with the LR check fused) and
     `depth` (K8, K2/K3, K4) with --device cuda write the .npz arrays, PNG
     pixels and PLY bytes that --device cpu writes. `depth` runs without the
-    refinement: its float box sums are cumulative sums, a parallel scan on the
-    card and a sequential one on the CPU, so only the integer route is
-    bit-identical across the two devices."""
+    refinement: its float box sums are cumulative sums, in PyTorch's parallel
+    scan order on the card (which the fused refinement kernels keep) and a
+    sequential one on the CPU, so only the integer route is bit-identical
+    across the two devices."""
     from pathlib import Path
 
     from stereovisionarray_tpu_torch.cli import main

@@ -2,7 +2,7 @@
 CPU: :func:`_native.check`'s refusals (device, dtype, shape, contiguity) and
 their messages; :func:`_native.launch` on the current stream's raw handle,
 entering a device context only for a tensor on another device, and raising
-on a reported CUDA error; the kernel wrappers refusing CPU tensors under
+on a reported CUDA error (:func:`_native.call` returning it); the kernel wrappers refusing CPU tensors under
 ``backend="cuda"`` before anything is built. The torch entry points of a CUDA
 build and the library are stood in for, so nothing here needs a card."""
 
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from stereovisionarray_tpu_torch import _native
-from stereovisionarray_tpu_torch.ops import extract_cuda, hatsample
+from stereovisionarray_tpu_torch.ops import extract_cuda, hatsample, refine
 
 
 def _tensor(shape=(3, 4), dtype=torch.float32, cuda=True, contiguous=True):
@@ -84,6 +84,12 @@ def test_launch_raises_on_a_reported_error(fake_cuda):
         _native.launch("svt_entry", torch.device("cuda", 0))
 
 
+def test_call_returns_what_the_entry_point_returns(fake_cuda):
+    fake_cuda["err"] = 3
+    assert _native.call("svt_entry", torch.device("cuda", 0), 7) == 3
+    assert fake_cuda["calls"] == [(7, 1000)]
+
+
 def _maps():
     return torch.from_numpy(np.random.default_rng(0).uniform(0, 7, (4, 9)).astype(np.float32))
 
@@ -96,7 +102,9 @@ def _maps():
     lambda: extract_cuda.lr_gather(_maps(), _maps(), 8, backend="cuda"),
     lambda: hatsample.hat_sample(_maps(), _maps(), -2, 2, backend="cuda"),
     lambda: hatsample.hat_sample_2d(_maps(), _maps(), _maps(), -2, 2, backend="cuda"),
-], ids=["K4", "K6", "K5", "K9", "K9_2d"])
+    lambda: refine.multiview_refine(_maps(), _maps()[None], np.array([[1.0, 0.0]]), _maps(),
+                                    max_disparity=8.0, backend="cuda"),
+], ids=["K4", "K6", "K5", "K9", "K9_2d", "R"])
 def test_wrappers_refuse_cpu_tensors_before_building(monkeypatch, call):
     monkeypatch.setattr(_native, "build", lambda force=False: pytest.fail("built"))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
