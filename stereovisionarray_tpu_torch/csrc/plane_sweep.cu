@@ -31,13 +31,31 @@
 // integer, so each fused value is fixed whatever the order of the sums.
 //
 // What bounds it on the H100: at 270x360, 128 planes, the work is
-// D * S * H * W pixel-views of a bilinear sample, patch^2 - 1 compares, a
+// D * S * H * W pixel-views of a bilinear sample, patch^2 - 1 census bits, a
 // popcount and the fusion, 50 M pixel-views for 4 sources and 300 M for 24,
-// against a 100 MB volume write; instructions, not memory, are the bound.
+// against a 100 MB volume write; the instructions issued, not memory, are
+// the bound. Measured at patch 5 (the SASS of one plane and source of a
+// warp, cuobjdump; CUDA events at the array paths' shapes, SM clock 1980
+// MHz; scripts/perf_sweep.py):
+//  - its earlier form (a lane a column, each census bit an FSETP and a
+//    predicated insert, float top-k slots): 725 instructions for 112
+//    pixel-views at top-6 (6.5 a pixel-view), 72 registers; 2.04 SM cycles
+//    a pixel-view at 24 sources (2.33 ms), 1.85 at 4 (0.352 ms);
+//  - this one: 1,026 instructions for 360 pixel-views at top-6 (2.85; 961
+//    for the mean), an FADD and a funnel shift a census bit being 56% of
+//    them; 126 registers at top-6, 96 for the mean (4 and 5 blocks of 4
+//    warps an SM); 1.08 SM cycles a pixel-view at 24 sources (1.24 ms), 1.28
+//    at 4 (0.244 ms).
 // Two kernels:
 //  - plane_sweep_fast_kernel (patch 3, 5, 7, top-k <= 8, <= 255 sources:
 //    every array path) keeps everything in registers and shuffles, with no
-//    barrier (see its comment below);
+//    barrier (see its comment below). Its tile: 64 columns by 6 rows a warp
+//    (4 rows at patch 7, whose two census words a pixel cost registers), 4
+//    warps a block, and 8 planes a block, or 4 where a plane has 16 sources
+//    or more: a block's fixed work (the reference census, the write-out) is
+//    then small beside its views, and the smaller blocks shorten the last
+//    wave (at 8 rows, 24 sources: 1.28 ms at 4 planes against 1.32 at 8; at
+//    6 rows, 4 sources: 0.244 at 8 planes against 0.278 at 4);
 //  - plane_sweep_kernel, the generic one (any patch, top-k up to 200): one
 //    block per (32x8 pixel tile, chunk of planes) packs its pixels' reference
 //    census into shared memory once, then for each plane and source stages
@@ -46,8 +64,6 @@
 //    from that window and accumulates the fusion in registers (top-k slots in
 //    shared memory, so k has no compile-time cap); each pixel's chunk of
 //    planes goes out as 16-byte stores from shared memory at the end.
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -213,34 +229,54 @@ plane_sweep_kernel(const float* __restrict__ ref, const float* __restrict__ src,
 
 // ---------------------------------------------------------------------------
 // The specialised kernel (patch 3, 5, 7; top-k up to kMaxRegTopk; at most 255
-// sources), the one the array paths run. A warp owns a strip of 32 columns by
-// kRows output rows, and each lane one column of it: the lane computes the
-// warped values of its column for the kRows + 2M rows the census needs
-// (bilinear from the source through the L1 cache, each row's horizontal lerp
-// shared by the two warped rows that use it), and takes the values of the
-// columns beside it from the neighbouring lanes with __shfl_up/down_sync.
-// The M lanes at each edge of the warp only feed their neighbours, so a warp
-// writes 32 - 2M columns. No warp waits for another: no barrier. The census
-// is a 32-bit word (patch 3 and 5) or a 64-bit one (patch 7) built in
-// registers with the bit positions fixed at compile time; the reference
-// census of each pixel is built once a block, from the edge-clamped
-// reference the same way. Top-k keeps its k slots in registers (unrolled
-// insertion). Each lane keeps its pixels' results for the block's
-// kPlanesPerBlock planes in shared memory (slots only it reads, so no
-// barrier; registers would cost occupancy) and writes each pixel's chunk as
-// two 16-byte stores of `fused` and two of `nviews` (scalar stores where
-// D % 4 != 0 or the chunk is cut short). What bounds it: the instructions of
-// the per-pixel work (~2 per census bit, the lerps, the fusion) and the
-// latency of the 2 * (kRows + 2M + 1) cached source loads a lane makes for
-// each plane and source; the generic kernel spends about 8 SM cycles a
-// pixel-view on two block barriers and bounds-checked gathers.
+// sources), the one the array paths run. A warp owns a strip of 64 columns by
+// kRows output rows, and each lane two neighbouring columns of it: the lane
+// computes the warped values of its two columns for the kRows + 2M rows the
+// census needs (bilinear from the source through the L1 cache, three source
+// columns a row; each row's horizontal lerps shared by the two warped rows
+// that use them) and takes the 2M columns beside them from the neighbouring
+// lanes with __shfl_up/down_sync. The M columns at each edge of the strip
+// only feed their neighbours, so a warp writes 64 - 2M columns. No warp waits
+// for another: no barrier.
+//
+// The census bit of a neighbour is the sign bit of the float difference
+// nb - centre, shifted into a 32-bit word with one funnel shift: a full-rate
+// FADD and one shift a bit, where a compare and a predicated insert take two
+// half-rate instructions. The sign bit of nb - centre is nb < centre for any
+// two float32 values of which neither is -0 (a NaN difference is the
+// positive canonical NaN, as nb < centre is false), so every warped and
+// reference value is normalised by adding +0 first, which turns -0 into +0
+// and changes no comparison. The reference census is built once a block by
+// the same function, so both take the same bit order. The cost of a view is
+// kept as its popcount; the two pixels of a lane's row travel packed as two
+// 16-bit halves of one register: an out-of-view source's ceiling is merged
+// in with one LOP3, the mean forms add the halves with one IADD, and the
+// top-k form keeps NK ascending slots of such pairs and inserts a value with
+// Hopper's 16x2 minimum and maximum (2 NK - 1 instructions for two pixels).
+// The sums are integers until the write-out, where the one conversion and
+// the product with the float32 reciprocal (or the IEEE division of the valid
+// mean) give the reference's float value exactly. Each lane keeps its
+// pixels' integer numerators and view counts for the block's planes (8, or
+// 4 from 16 sources up) in shared memory (slots only it reads, so no
+// barrier) and writes each pixel's chunk as 16-byte stores of `fused` and
+// `nviews`, one a 4 planes (scalar stores where D % 4 != 0 or the chunk is
+// cut short). The next
+// view's shift is loaded one iteration ahead, and a warp whose source window
+// lies inside the image loads it without bounds tests.
 
-constexpr int kRows = 4;          // output rows a lane owns
 constexpr int kFastWarps = 4;     // warps a block, stacked vertically
+constexpr int kFastPlanes = 8;    // most planes a block
 constexpr int kMaxRegTopk = 8;    // top-k slots held in registers
 
 template <int PATCH>
-using CensusWord = typename std::conditional<(PATCH * PATCH - 1 > 32), uint64_t, uint32_t>::type;
+struct Fast {
+  static constexpr int M = PATCH / 2;
+  static constexpr int kRows = PATCH == 7 ? 4 : 6;   // output rows a lane owns
+  static constexpr int kCol = kRows + 2 * M;         // warped rows a lane computes
+  static constexpr int kWords = (PATCH * PATCH + 30) / 32;  // census words a pixel
+  static constexpr int kOut = 64 - 2 * M;            // columns a warp writes
+  static constexpr uint32_t kCeiling2 = (PATCH * PATCH - 1) * 0x00010001u;  // both halves
+};
 
 // census bit of neighbour (dy, dx): row-major over the patch, centre skipped
 template <int PATCH>
@@ -248,186 +284,254 @@ __host__ __device__ constexpr int census_bit(int dy, int dx) {
   return (dy + PATCH / 2) * PATCH + (dx + PATCH / 2) - ((dy > 0 || (dy == 0 && dx > 0)) ? 1 : 0);
 }
 
-// value of lane (lane + dx) of the warp (dx in [-M, M])
-__device__ __forceinline__ float lane_at(float v, int dx) {
-  if (dx > 0) return __shfl_down_sync(kFull, v, dx);
-  if (dx < 0) return __shfl_up_sync(kFull, v, -dx);
+// value of lane (lane + dl) of the warp
+__device__ __forceinline__ float lane_at(float v, int dl) {
+  if (dl > 0) return __shfl_down_sync(kFull, v, dl);
+  if (dl < 0) return __shfl_up_sync(kFull, v, -dl);
   return v;
 }
 
-// census of the kRows pixels of a lane from its column's kRows + 2M values
+__device__ __forceinline__ uint32_t min_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Census words of the lane's kRows x 2 pixels from its two columns' values
+// v[c][i] (rows y0 - M + i; normalised, no -0). Bit census_bit(dy, dx) of a
+// pixel is shifted in at its turn, so the first neighbour ends highest in
+// word 0; patch 7's bits 32-47 go to word 1.
 template <int PATCH>
-__device__ __forceinline__ void census_rows(const float (&col)[kRows + PATCH - 1],
-                                            CensusWord<PATCH> (&bits)[kRows]) {
-  constexpr int M = PATCH / 2;
+__device__ __forceinline__ void census(const float (&v)[2][Fast<PATCH>::kCol],
+                                       uint32_t (&bits)[Fast<PATCH>::kRows][2][Fast<PATCH>::kWords]) {
+  using F = Fast<PATCH>;
+  constexpr int M = F::M;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) bits[r] = 0;
+  for (int r = 0; r < F::kRows; ++r)
 #pragma unroll
-  for (int i = 0; i < kRows + 2 * M; ++i) {
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-    for (int dx = -M; dx <= M; ++dx) {
-      const float nb = lane_at(col[i], dx);
+      for (int k = 0; k < F::kWords; ++k) bits[r][c][k] = 0;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int dy = i - M - r;
-        if (dy < -M || dy > M || (dy == 0 && dx == 0)) continue;
-        if (nb < col[r + M])
-          bits[r] |= static_cast<CensusWord<PATCH>>(1) << census_bit<PATCH>(dy, dx);
+  for (int i = 0; i < F::kCol; ++i) {
+    // the row's values at columns x0 - M .. x0 + 1 + M (x0: the lane's first)
+    float row[2 + 2 * M];
+#pragma unroll
+    for (int j = 0; j < 2 + 2 * M; ++j) {
+      const int col = j - M;
+      const int dl = col >= 0 ? col / 2 : -((1 - col) / 2);  // floor(col / 2)
+      row[j] = lane_at(v[col - 2 * dl][i], dl);
+    }
+#pragma unroll
+    for (int r = 0; r < F::kRows; ++r) {
+      const int dy = i - M - r;
+      if (dy < -M || dy > M) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float centre = v[c][r + M];
+#pragma unroll
+        for (int dx = -M; dx <= M; ++dx) {
+          if (dy == 0 && dx == 0) continue;
+          uint32_t& word = bits[r][c][census_bit<PATCH>(dy, dx) / 32];
+          word = __funnelshift_l(__float_as_uint(row[c + dx + M] - centre), word, 1);
+        }
       }
     }
   }
 }
 
-__device__ __forceinline__ int popc_word(uint32_t v) { return __popc(v); }
-__device__ __forceinline__ int popc_word(uint64_t v) { return __popcll(v); }
-
-template <int PATCH, bool TOPK>
+// NK: top-k slots (k rounded up to even); 0 for the two mean forms
+template <int PATCH, int NK>
 __global__ void __launch_bounds__(kFastWarps * 32)
 plane_sweep_fast_kernel(const float* __restrict__ ref, const float* __restrict__ src,
                         const float* __restrict__ shifts, float* __restrict__ fused,
                         int* __restrict__ nviews, int n_src, int h, int w, int n_planes,
-                        int mode, int topk) {
-  constexpr int M = PATCH / 2;
-  constexpr int kCol = kRows + 2 * M;
-  using Word = CensusWord<PATCH>;
+                        int mode, int topk, int planes) {
+  using F = Fast<PATCH>;
+  constexpr int M = F::M;
+  constexpr int R = F::kRows;
+  constexpr int C = F::kCol;
   const int lane = threadIdx.x & 31;
-  const int x = blockIdx.x * (32 - 2 * M) + lane - M;  // this lane's column
-  const int y0 = (blockIdx.y * kFastWarps + (threadIdx.x >> 5)) * kRows;  // first output row
+  const int warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.y * F::kOut - M + 2 * lane;  // this lane's first column
+  const int y0 = (blockIdx.z * kFastWarps + warp) * R;  // first output row
   if (y0 >= h) return;  // whole warp: below the image (warps share nothing)
-  const bool out_lane = lane >= M && lane < 32 - M && x < w;
-  const int xc = min(max(x, 0), w - 1);
-  const float ceiling = static_cast<float>(PATCH * PATCH - 1);
-  const float u = static_cast<float>(x);
 
   // reference census, edge-clamped neighbours
-  Word ref_bits[kRows];
+  uint32_t ref_bits[R][2][F::kWords];
   {
-    float col[kCol];
+    float v[2][C];
 #pragma unroll
-    for (int i = 0; i < kCol; ++i)
-      col[i] = __ldg(ref + static_cast<size_t>(min(max(y0 - M + i, 0), h - 1)) * w + xc);
-    census_rows<PATCH>(col, ref_bits);
+    for (int c = 0; c < 2; ++c) {
+      const int xc = min(max(x0 + c, 0), w - 1);
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        v[c][i] = __ldg(ref + static_cast<size_t>(min(max(y0 - M + i, 0), h - 1)) * w + xc) + 0.0f;
+    }
+    census<PATCH>(v, ref_bits);
   }
 
-  const int d_first = blockIdx.z * kPlanesPerBlock;
+  const int d_first = blockIdx.x * planes;
+  const int n_here = min(planes, n_planes - d_first);
   // each lane's results for the chunk, read back by the same lane at the end
-  // (so registers do not hold them across the planes)
-  __shared__ float s_out[kFastWarps][kRows][kPlanesPerBlock][32];
-  __shared__ uint8_t s_nv[kFastWarps][kRows][kPlanesPerBlock][32];
-  const int warp = threadIdx.x >> 5;
+  // (so registers do not hold them across the planes): the two pixels'
+  // integer numerators (16 bits each) and view counts (8 bits each)
+  __shared__ uint32_t s_num[kFastWarps][R][kFastPlanes][32];
+  __shared__ uint16_t s_nv[kFastWarps][R][kFastPlanes][32];
+  // what an out-of-view source adds: the ceiling, or nothing to the valid mean
+  const uint32_t fill = (NK > 0 || mode == 0) ? F::kCeiling2 : 0u;
+  const float u0 = static_cast<float>(x0), u1 = static_cast<float>(x0 + 1);
+  const float v_lane = static_cast<float>(y0 + lane);  // lane r tests row y0 + r
+  const float* sh = shifts + static_cast<size_t>(d_first) * n_src * 2;
+  const int n_iter = n_here * n_src;
+  float su = __ldg(sh), sv = __ldg(sh + 1);
 
-  for (int dd = 0; dd < kPlanesPerBlock; ++dd) {
-    const int d = d_first + dd;
-    if (d >= n_planes) break;  // uniform across the block
-    float acc[kRows];
-    int nv[kRows];
-    float slot[kRows][TOPK ? kMaxRegTopk : 1];
+  for (int dd = 0; dd < n_here; ++dd) {
+    uint32_t acc[R];                     // mean forms: the cost sums
+    uint32_t slot[R][NK > 0 ? NK : 1];  // top-k: ascending slots
+    uint32_t nv[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      acc[r] = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      acc[r] = 0;
       nv[r] = 0;
 #pragma unroll
-      for (int i = 0; i < (TOPK ? kMaxRegTopk : 1); ++i) slot[r][i] = 1e30f;
+      for (int i = 0; i < (NK > 0 ? NK : 1); ++i) slot[r][i] = 0xffffffffu;
     }
     for (int s = 0; s < n_src; ++s) {
-      const float su = __ldg(shifts + (d * n_src + s) * 2);
-      const float sv = __ldg(shifts + (d * n_src + s) * 2 + 1);
+      const int e = min(dd * n_src + s + 1, n_iter - 1);  // the next view's shift, ahead
+      const float su_next = __ldg(sh + 2 * e), sv_next = __ldg(sh + 2 * e + 1);
       const float i0f = floorf(su), j0f = floorf(sv);
       const float fu = su - i0f, fv = sv - j0f;
-      const int xs = x + static_cast<int>(i0f);
+      const float gu = 1.0f - fu, gv = 1.0f - fv;
+      const int xs = x0 + static_cast<int>(i0f);
       const int ys = y0 - M + static_cast<int>(j0f);
       const float* img = src + static_cast<size_t>(s) * h * w;
-      const bool c0 = xs >= 0 && xs < w, c1 = xs + 1 >= 0 && xs + 1 < w;
-      // horizontal lerps of the kCol + 1 source rows, then the vertical ones,
-      // in the reference's order: top * (1 - fv) + bot * fv
-      float lerp[kCol + 1];
+      // horizontal lerps of the C + 1 source rows at the lane's two columns,
+      // then the vertical ones, in the reference's order: a * (1 - fu) +
+      // b * fu, top * (1 - fv) + bot * fv
+      float ha[C + 1], hb[C + 1];
+      if (__all_sync(kFull, xs >= 0 && xs + 2 < w && ys >= 0 && ys + C < h)) {
+        const float* p = img + static_cast<size_t>(ys) * w + xs;
 #pragma unroll
-      for (int i = 0; i < kCol + 1; ++i) {
-        const int yy = ys + i;
-        const bool rv = yy >= 0 && yy < h;
-        const size_t at = static_cast<size_t>(rv ? yy : 0) * w + xs;
-        const float a = rv && c0 ? __ldg(img + at) : 0.0f;
-        const float b = rv && c1 ? __ldg(img + at + 1) : 0.0f;
-        lerp[i] = a * (1.0f - fu) + b * fu;
-      }
-      float col[kCol];
+        for (int i = 0; i < C + 1; ++i) {
+          const float a = __ldg(p + static_cast<size_t>(i) * w);
+          const float b = __ldg(p + static_cast<size_t>(i) * w + 1);
+          const float c = __ldg(p + static_cast<size_t>(i) * w + 2);
+          ha[i] = a * gu + b * fu;
+          hb[i] = b * gu + c * fu;
+        }
+      } else {
+        const bool c0 = static_cast<unsigned>(xs) < static_cast<unsigned>(w);
+        const bool c1 = static_cast<unsigned>(xs + 1) < static_cast<unsigned>(w);
+        const bool c2 = static_cast<unsigned>(xs + 2) < static_cast<unsigned>(w);
 #pragma unroll
-      for (int i = 0; i < kCol; ++i) col[i] = lerp[i] * (1.0f - fv) + lerp[i + 1] * fv;
-      Word bits[kRows];
-      census_rows<PATCH>(col, bits);
-
-      const float su2 = i0f + fu, sv2 = j0f + fv;
-      const bool ok_u = u + su2 >= 0.0f && u + su2 <= static_cast<float>(w - 1);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = static_cast<float>(y0 + r);
-        const bool ok = ok_u && v + sv2 >= 0.0f && v + sv2 <= static_cast<float>(h - 1);
-        nv[r] += ok;
-        const float cost = static_cast<float>(popc_word(bits[r] ^ ref_bits[r]));
-        if (TOPK) {
-          float val = ok ? cost : ceiling;
-#pragma unroll
-          for (int i = 0; i < kMaxRegTopk; ++i) {
-            if (i < topk) {
-              const float t = slot[r][i];
-              slot[r][i] = fminf(t, val);
-              val = fmaxf(t, val);
-            }
-          }
-        } else if (mode == 1) {
-          acc[r] = acc[r] + (ok ? cost : 0.0f);
-        } else {
-          acc[r] = acc[r] + (ok ? cost : ceiling);
+        for (int i = 0; i < C + 1; ++i) {
+          const int yy = ys + i;
+          const bool rv = static_cast<unsigned>(yy) < static_cast<unsigned>(h);
+          const size_t at = static_cast<size_t>(rv ? yy : 0) * w + xs;
+          const float a = rv && c0 ? __ldg(img + at) : 0.0f;
+          const float b = rv && c1 ? __ldg(img + at + 1) : 0.0f;
+          const float c = rv && c2 ? __ldg(img + at + 2) : 0.0f;
+          ha[i] = a * gu + b * fu;
+          hb[i] = b * gu + c * fu;
         }
       }
+      float v[2][C];
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        v[0][i] = (ha[i] * gv + ha[i + 1] * fv) + 0.0f;
+        v[1][i] = (hb[i] * gv + hb[i + 1] * fv) + 0.0f;
+      }
+      uint32_t bits[R][2][F::kWords];
+      census<PATCH>(v, bits);
+
+      // in view: the reference kernel's float test of u + su2 and v + sv2
+      const float su2 = i0f + fu, sv2 = j0f + fv;
+      const bool ok0 = u0 + su2 >= 0.0f && u0 + su2 <= static_cast<float>(w - 1);
+      const bool ok1 = u1 + su2 >= 0.0f && u1 + su2 <= static_cast<float>(w - 1);
+      const uint32_t cols_in = (ok0 ? 0x0000ffffu : 0u) | (ok1 ? 0xffff0000u : 0u);
+      const unsigned rows_in = __ballot_sync(
+          kFull, v_lane + sv2 >= 0.0f && v_lane + sv2 <= static_cast<float>(h - 1));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t in = (rows_in >> r) & 1u ? cols_in : 0u;
+        uint32_t cost = 0;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          int p = 0;
+#pragma unroll
+          for (int k = 0; k < F::kWords; ++k) p += __popc(bits[r][c][k] ^ ref_bits[r][c][k]);
+          cost |= static_cast<uint32_t>(p) << (16 * c);
+        }
+        const uint32_t val = (cost & in) | (fill & ~in);
+        nv[r] += in & 0x00010001u;
+        if (NK > 0) {
+#pragma unroll
+          for (int i = (NK > 0 ? NK : 1) - 1; i > 0; --i)
+            slot[r][i] = min_u16x2(slot[r][i], max_u16x2(slot[r][i - 1], val));
+          slot[r][0] = min_u16x2(slot[r][0], val);
+        } else {
+          acc[r] += val;
+        }
+      }
+      su = su_next;
+      sv = sv_next;
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float o;
-      if (TOPK) {
-        float a = slot[r][0];
+    for (int r = 0; r < R; ++r) {
+      uint32_t num = acc[r];
+      if (NK > 0) {
+        num = slot[r][0];
 #pragma unroll
-        for (int i = 1; i < kMaxRegTopk; ++i)
-          if (i < topk) a = a + slot[r][i];
-        o = a * (1.0f / static_cast<float>(topk));
-      } else if (mode == 1) {
-        o = acc[r] / static_cast<float>(max(nv[r], 1));
-      } else {
-        o = acc[r] * (1.0f / static_cast<float>(n_src));
+        for (int i = 1; i < (NK > 0 ? NK : 1); ++i)
+          if (i < topk) num += slot[r][i];
       }
-      s_out[warp][r][dd][lane] = o;
-      s_nv[warp][r][dd][lane] = static_cast<uint8_t>(nv[r]);
+      s_num[warp][r][dd][lane] = num;
+      s_nv[warp][r][dd][lane] = static_cast<uint16_t>(nv[r] | (nv[r] >> 8));
     }
   }
 
-  if (!out_lane) return;
-  const int n_here = min(kPlanesPerBlock, n_planes - d_first);
-  const bool vec = n_here == kPlanesPerBlock && n_planes % 4 == 0;
+  const float inv = 1.0f / static_cast<float>(NK > 0 ? topk : n_src);
+  const bool vec = n_here % 4 == 0 && n_planes % 4 == 0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int y = y0 + r;
     if (y >= h) break;
-    const size_t o = (static_cast<size_t>(y) * w + x) * n_planes + d_first;
-    float out[kPlanesPerBlock];
-    int cnt[kPlanesPerBlock];
 #pragma unroll
-    for (int dd = 0; dd < kPlanesPerBlock; ++dd) {
-      out[dd] = s_out[warp][r][dd][lane];
-      cnt[dd] = s_nv[warp][r][dd][lane];
-    }
-    if (vec) {
-      float4* f = reinterpret_cast<float4*>(fused + o);
-      f[0] = make_float4(out[0], out[1], out[2], out[3]);
-      f[1] = make_float4(out[4], out[5], out[6], out[7]);
-      int4* n = reinterpret_cast<int4*>(nviews + o);
-      n[0] = make_int4(cnt[0], cnt[1], cnt[2], cnt[3]);
-      n[1] = make_int4(cnt[4], cnt[5], cnt[6], cnt[7]);
-    } else {
+    for (int c = 0; c < 2; ++c) {
+      const int x = x0 + c;
+      if (2 * lane + c < M || 2 * lane + c >= 64 - M || x >= w) continue;
+      float out[kFastPlanes];
+      int cnt[kFastPlanes];
 #pragma unroll
-      for (int dd = 0; dd < kPlanesPerBlock; ++dd) {
-        if (dd < n_here) {
-          fused[o + dd] = out[dd];
-          nviews[o + dd] = cnt[dd];
+      for (int dd = 0; dd < kFastPlanes; ++dd) {  // past n_here: never stored
+        const float num = static_cast<float>((s_num[warp][r][dd][lane] >> (16 * c)) & 0xffffu);
+        cnt[dd] = (s_nv[warp][r][dd][lane] >> (8 * c)) & 0xff;
+        out[dd] = (NK == 0 && mode == 1) ? num / static_cast<float>(max(cnt[dd], 1)) : num * inv;
+      }
+      const size_t o = (static_cast<size_t>(y) * w + x) * n_planes + d_first;
+      if (vec) {
+#pragma unroll
+        for (int q = 0; q < kFastPlanes / 4; ++q) {
+          if (4 * q >= n_here) break;
+          reinterpret_cast<float4*>(fused + o)[q] =
+              make_float4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
+          reinterpret_cast<int4*>(nviews + o)[q] =
+              make_int4(cnt[4 * q], cnt[4 * q + 1], cnt[4 * q + 2], cnt[4 * q + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int dd = 0; dd < kFastPlanes; ++dd) {
+          if (dd < n_here) {
+            fused[o + dd] = out[dd];
+            nviews[o + dd] = cnt[dd];
+          }
         }
       }
     }
@@ -438,16 +542,28 @@ template <int PATCH>
 cudaError_t launch_fast(const float* ref, const float* src, const float* shifts, float* fused,
                         int* nviews, int n_src, int h, int w, int n_planes, int mode, int topk,
                         cudaStream_t stream) {
-  constexpr int M = PATCH / 2;
-  const dim3 grid((w + 31 - 2 * M) / (32 - 2 * M),
-                  (h + kFastWarps * kRows - 1) / (kFastWarps * kRows),
-                  (n_planes + kPlanesPerBlock - 1) / kPlanesPerBlock);
-  if (mode == 2)
-    plane_sweep_fast_kernel<PATCH, true><<<grid, kFastWarps * 32, 0, stream>>>(
-        ref, src, shifts, fused, nviews, n_src, h, w, n_planes, mode, topk);
-  else
-    plane_sweep_fast_kernel<PATCH, false><<<grid, kFastWarps * 32, 0, stream>>>(
-        ref, src, shifts, fused, nviews, n_src, h, w, n_planes, mode, topk);
+  using F = Fast<PATCH>;
+  // planes a block: 4 where a plane has many sources to sweep (a block's
+  // fixed work, the reference census and the write-out, is then small beside
+  // its 4 * n_src views, and the smaller blocks shorten the last wave), else 8
+  const int planes = n_src >= 16 ? 4 : 8;
+  // the chunks of planes first, so that a pixel's chunks run side by side and
+  // their stores meet in L2 sector by sector
+  const dim3 grid((n_planes + planes - 1) / planes, (w + F::kOut - 1) / F::kOut,
+                  (h + kFastWarps * F::kRows - 1) / (kFastWarps * F::kRows));
+  const dim3 block(kFastWarps * 32);
+#define SVT_FAST(NK)                                                                \
+  plane_sweep_fast_kernel<PATCH, NK><<<grid, block, 0, stream>>>(                  \
+      ref, src, shifts, fused, nviews, n_src, h, w, n_planes, mode, topk, planes)
+  // top-k slots: k rounded up to even (the sum takes the first k)
+  switch (mode == 2 ? (topk + 1) & ~1 : 0) {
+    case 0: SVT_FAST(0); break;
+    case 2: SVT_FAST(2); break;
+    case 4: SVT_FAST(4); break;
+    case 6: SVT_FAST(6); break;
+    default: SVT_FAST(8); break;
+  }
+#undef SVT_FAST
   return cudaGetLastError();
 }
 

@@ -4,7 +4,12 @@ every lanes-per-warp width of the SGM scans (D up to 32, 64, 128, 256),
 census codes of one to four 64-bit words, int8 and int16 costs, 4 and 8 paths,
 and images narrower than a tile or than the disparity range; the plane sweep
 K8 over 1 to 24 sources, every fusion (plain mean, valid mean, top-k from 1
-to S-1), patch 3 to 17, odd shapes and 1 to 256 planes; K2/K3 and K4 at
+to S-1; every slot count of the specialised kernel at patch 3, 5 and 7),
+patch 3 to 17, odd shapes and 1 to 256 planes, shapes one either side of
+the specialised kernel's strip and block, the 5x5 rig's own CROSS and
+to_center shift tables at 270x360x128, and images of -0.0, ties, negative
+values, infinities and NaN (its census bit is the sign of a float
+difference); K2/K3 and K4 at
 D=128 on a quantized plane volume; the hat sampler K9 over tap ranges from
 one tap to 99, batches, both axes, the aux table, ragged shapes and t far
 outside the range, its 128-bit path and its scalar path (W % 4 != 0,
@@ -746,24 +751,92 @@ def test_plane_sweep_kernel_every_patch_route(rng, patch, valid_mean, topk):
     _same(call("cuda"), call("torch"))
 
 
-@pytest.mark.parametrize("topk", [1, 6, 8, 9, 23])
-def test_plane_sweep_kernel_topk_in_registers_and_in_shared_memory(rng, topk):
+@pytest.mark.parametrize("topk,patch", [
+    *(pytest.param(k, 5, id=str(k)) for k in (1, 6, 8, 9, 23)),
+    # every slot count of the specialised kernel (k rounded up to even) at each patch
+    *((k, p) for p in (3, 5, 7) for k in range(1, 9)),
+])
+def test_plane_sweep_kernel_topk_in_registers_and_in_shared_memory(rng, topk, patch):
     """k <= 8 keeps its slots in registers, 9 <= k in shared memory."""
     ref, src, shifts = _sweep_inputs(rng, 24, 21, 37, 12, spread=20.0)
-    call = lambda b: plane_sweep_census(ref, src, shifts, 5, False, topk, b)  # noqa: E731
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, topk, b)  # noqa: E731
     _same(call("cuda"), call("torch"))
 
 
 @pytest.mark.parametrize("h,w,D", [(17, 29, 8), (45, 61, 13), (16, 28, 9), (33, 100, 17),
-                                   (1, 5, 3), (90, 3, 8)])
+                                   (1, 5, 3), (90, 3, 8),
+                                   # one either side of the strip (58, 60, 62 columns at
+                                   # patch 7, 5, 3, and twice that) and of the block's 16 and
+                                   # 24 rows
+                                   (15, 57, 8), (17, 59, 9), (23, 61, 8), (25, 63, 16),
+                                   (15, 115, 8), (17, 117, 5), (31, 119, 8), (33, 121, 8),
+                                   (47, 123, 8), (49, 125, 12)])
 def test_plane_sweep_kernel_ragged_tiles_and_wide_shifts(rng, h, w, D):
-    """Shapes that are not multiples of the tile (28 x 16 pixels at patch 5),
-    planes that are not multiples of the chunk of 8, and shifts that move by
-    more than a tile from plane to plane within one chunk."""
+    """Shapes that are not multiples of the tile (a strip of 64 - 2M columns
+    by 24 rows, 16 at patch 7, in the specialised kernel), planes that are
+    not multiples of the chunk of 8, and shifts that move by more than a tile
+    from plane to plane within one chunk."""
     ref, src, shifts = _sweep_inputs(rng, 4, h, w, D, spread=70.0)
     for patch in (3, 5, 7):
         call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, None, b)  # noqa: E731
         _same(call("cuda"), call("torch"))
+
+
+@pytest.mark.parametrize("values", ["signed_zeros_and_ties", "negative", "infinities_and_nan"])
+@pytest.mark.parametrize("patch,valid_mean,topk", [(3, False, None), (5, False, 6), (5, True, None),
+                                                   (7, False, 3)])
+def test_plane_sweep_kernel_sign_of_difference(rng, values, patch, valid_mean, topk):
+    """The specialised kernel takes each census bit as the sign of nb - centre
+    over values normalised by adding +0: images of -0.0 and +0.0 among exact
+    ties (integer shifts keep them ties after the warp), of negative values,
+    and of infinities and NaN (the warp's products turn them into NaN, a
+    difference with a NaN is the positive canonical NaN)."""
+    S, h, w, D = 8, 23, 70, 12
+    if values == "signed_zeros_and_ties":
+        pool = np.array([-0.0, 0.0, 1.0, -1.0, 2.0], np.float32)
+    elif values == "negative":
+        pool = -np.round(rng.uniform(0, 4, 16)).astype(np.float32) - 0.5 * (rng.uniform(size=16) < 0.3)
+    else:
+        pool = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 3.0, -3.0, 1e38, -1e38], np.float32)
+    ref = _cuda(rng.choice(pool, (h, w)).astype(np.float32))
+    src = _cuda(rng.choice(pool, (S, h, w)).astype(np.float32))
+    sh = rng.uniform(-9, 9, (D, S, 2)).astype(np.float32)
+    sh[::2] = np.round(sh[::2])  # integer shifts: the warp copies the values, ties stay ties
+    shifts = _cuda(sh)
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, valid_mean, topk, b)  # noqa: E731
+    got, want = call("cuda"), call("torch")
+    _same(got, want)
+
+
+@pytest.mark.parametrize("fusion", ["rig", "mean"])
+@pytest.mark.parametrize("topology", ["CROSS", "to_center"])
+def test_plane_sweep_kernel_rig_shift_tables(rng, topology, fusion):
+    """The 5x5 rig's own translation shift tables at the array cells' size,
+    270x360x128 (CROSS: 4 sources, to_center: 24), each in the rig's fusion
+    (the ceiling-padded mean at CROSS, the mean of the 6 best at to_center)
+    and in the valid mean."""
+    from stereovisionarray_tpu_torch import config
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig
+    from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
+    from stereovisionarray_tpu_torch.models.array_pipeline import reference_and_sources
+    from stereovisionarray_tpu_torch.models.plane_sweep import translation_shifts
+
+    h, w, D = 270, 360, 128
+    cams = reference_rig(rows=5, cols=5, spacing=0.05, resolution=(h, w))
+    cfg = config.EngineConfig().override(**{"camera.rows": 5, "camera.cols": 5,
+                                            "plane_sweep.num_planes": D,
+                                            "plane_sweep.topology": topology})
+    ps = cfg.plane_sweep
+    ref_index, src_index = reference_and_sources(cfg, 25)
+    depths = inverse_depth_samples(ps.z_near, ps.z_far, D)
+    shifts = _cuda(translation_shifts(cams, ref_index, src_index, depths).swapaxes(0, 1))
+    images = np.round(rng.uniform(0, 255, (25, h, w))).astype(np.float32)  # 8-bit frames
+    ref, src = _cuda(images[ref_index]), _cuda(images[list(src_index)])
+    S = len(src_index)
+    topk = ps.topk if fusion == "rig" and ps.topk < S else None
+    call = lambda b: plane_sweep_census(ref, src, shifts, ps.patch, fusion == "mean",  # noqa: E731
+                                        topk, b)
+    _same(call("cuda"), call("torch"))
 
 
 # ---- host-device waits: each timed path enqueues without waiting for the card ----------------
