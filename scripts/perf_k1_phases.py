@@ -5,10 +5,10 @@
 
 Builds text-patched copies of ``csrc/cost_volume.cu`` into
 ``stereovisionarray_tpu_torch/build/k1_phases/`` and times them behind a GPU
-spin (``chip_smoke.device_ms``, 20 launches), each launched with the
+spin (``perf_kernels.device_ms``, 20 launches), each launched with the
 arguments the wrapper ``fused_cost_volume_cuda`` hands the real kernel:
 
- - the whole kernel at every ``chip_smoke.K1_ROWS`` shape but the generic
+ - the whole kernel at every ``torch_records.K1_ROWS`` shape but the generic
    one (first held bit-exact to the plain twin ``fused_cost_volume``);
  - at 540x768x64 (int8, int16, float32) and 540x768x256 int8, the phases
    apart. For the untiled kernel (the form before the tiled one, and the
@@ -41,9 +41,10 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tests"))
 
-import chip_smoke  # noqa: E402
+import torch_records  # noqa: E402
+from perf_kernels import device_ms  # noqa: E402
 
 # text patches of each kernel form: variant -> [(old, new)]
 UNTILED = {
@@ -162,10 +163,10 @@ def main() -> None:
 
     real_launch = _native.launch
     lines = []
-    for row, (h, w, D), window, dtype in chip_smoke.K1_ROWS:
+    for row, (h, w, D), window, dtype in torch_records.K1_ROWS:
         if row.startswith("generic"):
             continue
-        left, right = chip_smoke.stereo_pair(torch, h, w, seed=h + D, integer=dtype == "int8")
+        left, right = torch_records.stereo_pair(torch, h, w, seed=h + D, integer=dtype == "int8")
         seen = []
         _native.launch = lambda name, device, *a: seen.append(a)  # noqa: E731
         try:  # the wrapper's allocation and arguments, without its launch
@@ -189,7 +190,7 @@ def main() -> None:
         line = {"row": row, "shape": [h, w, D], "window": list(window), "dtype": dtype,
                 "form": form, "bit_exact": True, "tag": args.tag, "card": card}
         for name in names:
-            line[f"{name}_ms"] = chip_smoke.device_ms(torch, lambda: call(fns[name]), 20)
+            line[f"{name}_ms"] = device_ms(torch, lambda: call(fns[name]), 20)
         if form == "tiled" and row in PHASE_ROWS:
             plan_tile = kargs[13]
             for name, tile in TILE_WIDTHS.items():
@@ -198,7 +199,7 @@ def main() -> None:
                 torch.cuda.synchronize()
                 if not torch.equal(out, want):
                     raise SystemExit(f"perf_k1_phases: {row} at tile {tile} differs")
-                line[f"{name}_ms"] = chip_smoke.device_ms(torch, lambda: call(fns["whole"]), 20)
+                line[f"{name}_ms"] = device_ms(torch, lambda: call(fns["whole"]), 20)
             kargs = (*kargs[:13], plan_tile)
         lines.append(line)
         print(json.dumps(line), flush=True)

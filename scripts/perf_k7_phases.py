@@ -6,7 +6,7 @@
 Builds instrumented copies of ``csrc/sgm_paths.cu`` (text-patched: a mask
 that skips launches, and a mode that skips the walks or the combines inside
 the cooperative passes) into ``stereovisionarray_tpu_torch/build/k7_phases/``
-and times, behind a GPU spin (``chip_smoke.device_ms``), at 540x768x64 (k7
+and times, behind a GPU spin (``perf_kernels.device_ms``), at 540x768x64 (k7
 order) and 270x360x128 (wdh), 8 paths:
 
  - the whole route, launch 1 (the horizontal walks) alone, each pass alone;
@@ -31,9 +31,10 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
+sys.path[:0] = [str(REPO), str(REPO / "tests")]
 
-import chip_smoke  # noqa: E402
+import torch_records  # noqa: E402
+from perf_kernels import device_ms  # noqa: E402
 
 
 def patch(text: str, old: str, new: str) -> str:
@@ -119,8 +120,8 @@ def main() -> None:
                ("down_walk", 2, 1), ("down_combine", 2, 2), ("down_barriers", 2, 0),
                ("up_walk", 4, 1), ("up_combine", 4, 2), ("up_barriers", 4, 0))
     lines = []
-    for (h, w, D), order in ((chip_smoke.BENCH_SHAPE, "k7"), ((270, 360, 128), "wdh")):
-        left, right = chip_smoke.stereo_pair(torch, h, w, seed=1)
+    for (h, w, D), order in ((torch_records.BENCH_SHAPE, "k7"), ((270, 360, 128), "wdh")):
+        left, right = torch_records.stereo_pair(torch, h, w, seed=1)
         vol = fused_cost_volume_cuda(left, right, D, (7, 9), 0.25, 32.0, "float32")
         p2_y, p2_x = p2_maps((h, w), 96.0, torch.float32, left.device, left, True, 24.0)
         plain = {n: sgm_aggregate_float(vol, p2_y, p2_x, 8.0, n, order=order, backend="torch")
@@ -150,7 +151,7 @@ def main() -> None:
                    "strip_rows": S, "bit_exact": True, "card": card}
             for key, mask, mode in timings:
                 setter(mask, mode)
-                row[f"{key}_ms"] = chip_smoke.device_ms(torch, call, 20)
+                row[f"{key}_ms"] = device_ms(torch, call, 20)
             setter(7, 3)
             lines.append(row)
             print(json.dumps(row), flush=True)

@@ -8,7 +8,7 @@ For the two array cells' K8 shapes (270x360, 128 planes, census 5x5 over
 the 5x5 rig's translation shifts: CROSS, 4 sources, the ceiling-padded mean;
 to_center, 24 sources, the mean of the 6 best), one JSON line each with:
 the kernel's device ms (CUDA events around launches queued behind a GPU
-spin, ``chip_smoke.device_ms``), whether its outputs equal the plain twin's
+spin, ``perf_kernels.device_ms``), whether its outputs equal the plain twin's
 bit for bit, ``benchmark/rooflines.plane_sweep``'s bound and the share,
 pixel-views (pixels x planes x sources) a second, and SM cycles a
 pixel-view at the SM clock ``nvidia-smi`` reads while the kernel runs
@@ -200,8 +200,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("perf_sweep: needs a CUDA device")
-    import chip_smoke
     from benchmark import rooflines
+    from perf_kernels import device_ms
     from stereovisionarray_tpu_torch import _native, config
     from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
     from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
@@ -247,7 +247,7 @@ def main() -> None:
         got, want = call(), call("torch")
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
         with ClockSampler() as clock:  # ~1 s of back-to-back launches under the sampler
-            ms = [chip_smoke.device_ms(torch, call, args.iters) for _ in range(5)]
+            ms = [device_ms(torch, call, args.iters) for _ in range(5)]
             n_more = max(1, int(1000 / max(ms)))
             for _ in range(n_more):
                 call()

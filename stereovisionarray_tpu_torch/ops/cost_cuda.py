@@ -160,8 +160,4 @@ def fused_cost_volume_cuda(
         float(bt_clip), float(worst), float(cost_scale_for(out_dtype)),
         plan.tile if plan is not None else 0,
     )
-    fused_cost_volume_cuda.launches += 1
     return out
-
-
-fused_cost_volume_cuda.launches = 0

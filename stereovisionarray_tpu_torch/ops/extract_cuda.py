@@ -26,11 +26,6 @@ bit-exact to the reference:
  - right-view candidates with x + d >= W and LR sources with x - d < 0 read
    BIG instead of an edge-clamped value.
 
-Launch counts: ``extract_maps.launches`` (K4) and
-``extract_disparity_maps.launches`` (K6) count their extraction launches;
-``lr_gather.launches`` counts the standalone gather and
-``lr_gather.fused_launches`` the K4 and K6 launches that ran the LR check.
-
 The extraction kernel stages a tile of a row's volume in shared memory
 before its per-pixel loop; :func:`_tile_plan` sizes the tile, and the launch
 hands the kernel its width and column stride.
@@ -227,14 +222,7 @@ def extract_maps(total: torch.Tensor, subpixel: bool = True, uniqueness: float =
     _check_volume(total)
     if resolve_backend(total, backend) != "cuda":
         return extract_maps_plain(total, subpixel, uniqueness, lr_max_diff, right)
-    maps = _launch_maps(total, subpixel, uniqueness, lr_max_diff, right)
-    extract_maps.launches += 1
-    if lr_max_diff > 0:
-        lr_gather.fused_launches += 1
-    return maps
-
-
-extract_maps.launches = 0
+    return _launch_maps(total, subpixel, uniqueness, lr_max_diff, right)
 
 
 def lr_gather_plain(disp_l: torch.Tensor, disp_r: torch.Tensor, n_disp: int) -> torch.Tensor:
@@ -261,12 +249,7 @@ def lr_gather(disp_l: torch.Tensor, disp_r: torch.Tensor, n_disp: int,
     at = torch.empty_like(disp_l)
     _native.launch("svt_lr_gather", disp_l.device, disp_l.data_ptr(), disp_r.data_ptr(),
                    at.data_ptr(), shape[0], shape[1], int(n_disp))
-    lr_gather.launches += 1
     return at
-
-
-lr_gather.launches = 0
-lr_gather.fused_launches = 0
 
 
 def extract_disparity_maps(vol: torch.Tensor, subpixel: bool = True, uniqueness: float = 0.0,
@@ -280,20 +263,13 @@ def extract_disparity_maps(vol: torch.Tensor, subpixel: bool = True, uniqueness:
     if resolve_backend(vol, backend) != "cuda":
         maps = extract_maps_plain(vol, subpixel, uniqueness, lr_max_diff, right=False)
         return DisparityMaps(maps.disparity, maps.cost, maps.valid, maps.second)
-    out = launch_disparity_maps(vol, subpixel, uniqueness, lr_max_diff)
-    extract_disparity_maps.launches += 1
-    if lr_max_diff > 0:
-        lr_gather.fused_launches += 1
-    return out
-
-
-extract_disparity_maps.launches = 0
+    return launch_disparity_maps(vol, subpixel, uniqueness, lr_max_diff)
 
 
 def launch_disparity_maps(vol: torch.Tensor, subpixel: bool, uniqueness: float,
                           lr_max_diff: float) -> DisparityMaps:
-    """K6's launch on a CUDA volume, counted by the caller: the maps, the LR
-    check in the same kernel (the right view only for it)."""
+    """K6's launch on a CUDA volume: the maps, the LR check in the same
+    kernel (the right view only for it)."""
     _check_volume(vol)
     maps = _launch_maps(vol, subpixel, uniqueness, lr_max_diff, right=False)
     return DisparityMaps(maps.disparity, maps.cost, maps.valid, maps.second)

@@ -17,7 +17,7 @@ reads ``values(x + k1 - k)`` (``hatsample.py:94``); no caller passes k1 < 0,
 and the port implements the formula above.
 
 :func:`hat_sample` and :func:`hat_sample_2d` launch ``csrc/hat_sample.cu``
-on CUDA tensors, each counting its launches; :func:`hat_sample_plain` is the
+on CUDA tensors; :func:`hat_sample_plain` is the
 same two-tap computation in plain PyTorch, bit-identical to the kernel, and
 :func:`hat_sample_2d_plain` its two passes.
 """
@@ -95,11 +95,7 @@ def hat_sample(values: torch.Tensor, t: torch.Tensor, k0: int, k1: int,
                    aux.data_ptr() if aux is not None else None, out.data_ptr(),
                    aout.data_ptr() if aout is not None else None, b, h, w, int(k0), int(k1),
                    int(axis == -2))
-    hat_sample.launches += 1
     return out if aux is None else (out, aout)
-
-
-hat_sample.launches = 0
 
 
 def hat_sample_2d_plain(values: torch.Tensor, t_rows: torch.Tensor, t_cols: torch.Tensor,
@@ -129,8 +125,4 @@ def hat_sample_2d(values: torch.Tensor, t_rows: torch.Tensor, t_cols: torch.Tens
     out = torch.empty_like(values)
     _native.launch("svt_hat_sample_2d", values.device, values.data_ptr(), t_rows.data_ptr(),
                    t_cols.data_ptr(), out.data_ptr(), b, h, w, int(k0), int(k1))
-    hat_sample_2d.launches += 1
     return out
-
-
-hat_sample_2d.launches = 0

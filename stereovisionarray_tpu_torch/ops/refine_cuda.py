@@ -71,7 +71,6 @@ def refine_pass(reference, aux, bl, disparity, mask, radius: int, step: float, w
                        disparity.data_ptr(), table.data_ptr(), c1.data_ptr(), n1.data_ptr(),
                        c2.data_ptr(), n2.data_ptr(), views, num, h, w, window // 2, int(box),
                        int(plan.q is not None), radius * step)
-        refine_pass.launches += 2 if box else 1
     with span("svt.refine.select"):
         out = (torch.empty_like(disparity), torch.empty_like(disparity),
                torch.empty_like(disparity), torch.empty((h, w), dtype=torch.bool, device=dev))
@@ -79,8 +78,4 @@ def refine_pass(reference, aux, bl, disparity, mask, radius: int, step: float, w
                        disparity.data_ptr(), mask.data_ptr() if mask is not None else None,
                        *(t.data_ptr() for t in out), num, h, w, window // 2, int(box),
                        int(subpixel), float(step))
-        refine_pass.launches += 1
     return out
-
-
-refine_pass.launches = 0

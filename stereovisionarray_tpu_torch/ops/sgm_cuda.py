@@ -108,12 +108,7 @@ def sgm_aggregate_paths(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tenso
     _check_integer(vol)
     if resolve_backend(vol, backend) != "cuda":
         return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
-    total = _launch_int(vol, p2_y, p2_x, p1, num_paths)
-    sgm_aggregate_paths.launches += 1
-    return total
-
-
-sgm_aggregate_paths.launches = 0
+    return _launch_int(vol, p2_y, p2_x, p1, num_paths)
 
 
 def _float_partials(vol, p2_y, p2_x, p1, path_ids):
@@ -177,16 +172,16 @@ def _launch_strips(vol, p2_y, p2_x, p1, num_paths, order, strip_rows):
 
 
 def _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order):
-    """The float sum over `sweeps`: (total, whether the strip route ran).
-    The strip route where :func:`_strip_plan` gives a strip height, else the
-    generic form: the path scans over `sweeps`, then their ordered combine."""
+    """The float sum over `sweeps`: the strip route where :func:`_strip_plan`
+    gives a strip height, else the generic form: the path scans over
+    `sweeps`, then their ordered combine."""
     h, w, D = vol.shape
     strip_rows = _strip_plan(h, w, D, num_paths, tuple(sweeps), vol.data_ptr() % 16 == 0)
     if strip_rows is not None:
-        return _launch_strips(vol, p2_y, p2_x, p1, num_paths, order, strip_rows), True
+        return _launch_strips(vol, p2_y, p2_x, p1, num_paths, order, strip_rows)
     groups = sweep_paths(num_paths)
     partial, mask = _float_partials(vol, p2_y, p2_x, p1, [p for s in sweeps for p in groups[s]])
-    return _combine(partial, mask, num_paths, sweeps, order), False
+    return _combine(partial, mask, num_paths, sweeps, order)
 
 
 def sgm_aggregate_float(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
@@ -195,22 +190,11 @@ def sgm_aggregate_float(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tenso
     """K7: the float32 SGM sum over `sweeps` of an (H, W, D) float32 volume,
     in `order` (``ops/sgm.ORDERS``); p2_y/p2_x (H, W) float32, p1 a float.
     ``sweeps`` is the reference's ``sgm_aggregate_pallas_sweeps`` subset (k7
-    order only); the sums over a split of the four add up to the whole.
-    ``launches`` counts the strip route's calls, ``generic_launches`` the
-    generic form's."""
+    order only); the sums over a split of the four add up to the whole."""
     sweeps = check_sweeps(sweeps, order)
     if resolve_backend(vol, backend) != "cuda":
         return aggregate_paths_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
-    out, strips = _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
-    if strips:
-        sgm_aggregate_float.launches += 1
-    else:
-        sgm_aggregate_float.generic_launches += 1
-    return out
-
-
-sgm_aggregate_float.launches = 0
-sgm_aggregate_float.generic_launches = 0
+    return _launch_float(vol, p2_y, p2_x, p1, num_paths, sweeps, order)
 
 
 def sgm_aggregate_hwd(vol: torch.Tensor, p1: float = 8.0, p2: float = 96.0,
@@ -232,13 +216,8 @@ def sgm_aggregate_hwd(vol: torch.Tensor, p1: float = 8.0, p2: float = 96.0,
         if floating:
             return aggregate_paths_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10")
         return aggregate_paths(vol, p2_y, p2_x, p1, num_paths)
-    out = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10")[0] if floating
-           else _launch_int(vol, p2_y, p2_x, p1, num_paths))
-    sgm_aggregate_hwd.launches += 1
-    return out
-
-
-sgm_aggregate_hwd.launches = 0
+    return (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k10") if floating
+            else _launch_int(vol, p2_y, p2_x, p1, num_paths))
 
 
 def sweep_pair(vol: torch.Tensor, p2_map: torch.Tensor, p1: float, diagonals: bool = True,
@@ -254,12 +233,7 @@ def sweep_pair(vol: torch.Tensor, p2_map: torch.Tensor, p1: float, diagonals: bo
         parts = path_partials(vol, p2_map, p2_map, p1, groups["down"] + groups["up"])
         return tuple(combine_partials(parts, num_paths, (s,)) for s in ("down", "up"))
     partial, mask = _float_partials(vol, p2_map, p2_map, p1, groups["down"] + groups["up"])
-    out = tuple(_combine(partial, mask, num_paths, (s,), "k7") for s in ("down", "up"))
-    sweep_pair.launches += 1
-    return out
-
-
-sweep_pair.launches = 0
+    return tuple(_combine(partial, mask, num_paths, (s,), "k7") for s in ("down", "up"))
 
 
 def sgm_extract_fused(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor, p1,
@@ -279,11 +253,6 @@ def sgm_extract_fused(vol: torch.Tensor, p2_y: torch.Tensor, p2_x: torch.Tensor,
                  if floating else aggregate_paths(vol, p2_y, p2_x, p1, num_paths))
         return extract_cuda.extract_disparity_maps(total, subpixel, uniqueness, lr_max_diff,
                                                    backend)
-    total = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k12")[0] if floating
+    total = (_launch_float(vol, p2_y, p2_x, p1, num_paths, ALL_SWEEPS, "k12") if floating
              else _launch_int(vol, p2_y, p2_x, p1, num_paths))
-    maps = extract_cuda.launch_disparity_maps(total, subpixel, uniqueness, lr_max_diff)
-    sgm_extract_fused.launches += 1
-    return maps
-
-
-sgm_extract_fused.launches = 0
+    return extract_cuda.launch_disparity_maps(total, subpixel, uniqueness, lr_max_diff)

@@ -168,8 +168,4 @@ def plane_sweep_census(ref: torch.Tensor, src_images: torch.Tensor, shifts: torc
     _native.launch("svt_plane_sweep", ref.device, ref.data_ptr(), src_images.data_ptr(),
                    shifts.data_ptr(), fused.data_ptr(), nviews.data_ptr(), S, h, w, D, int(patch),
                    mode, int(topk or 0))
-    plane_sweep_census.launches += 1
     return fused, nviews
-
-
-plane_sweep_census.launches = 0

@@ -1,5 +1,5 @@
 """The port's camera-array pipeline as a whole: the golden metrics of
-``chip_smoke.ARRAY_GOLDEN`` on the CPU, a small rig against the reference's
+``torch_records.ARRAY_GOLDEN`` on the CPU, a small rig against the reference's
 kernel route (plane_sweep_depth with backend="pallas_interpret" and the
 refine loop of models/array_pipeline.py:243-273), and the options it
 refuses raising (use_roi: tests/test_torch_roi.py)."""
@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.config import EngineConfig
 from stereovisionarray_tpu.datasets import SceneSpec as JaxScene
 from stereovisionarray_tpu.datasets import reference_rig as jax_rig
@@ -56,9 +56,9 @@ def test_array_golden_on_cpu():
     images, depths = render_camera_array(cams, (135, 180))
     out = array_depth_pipeline(torch.from_numpy(np.round(images)), cams, cfg, ref_index=12)
     got = array_depth_metrics(out.depth, out.refined_depth, out.valid, depths[12])
-    for metric, tol in chip_smoke.ARRAY_GOLDEN_TOL.items():
-        assert abs(got[metric] - chip_smoke.ARRAY_GOLDEN[metric]) <= tol, (metric, got)
-    assert got["density"] == chip_smoke.ARRAY_GOLDEN["density"]
+    for metric, tol in torch_records.ARRAY_GOLDEN_TOL.items():
+        assert abs(got[metric] - torch_records.ARRAY_GOLDEN[metric]) <= tol, (metric, got)
+    assert got["density"] == torch_records.ARRAY_GOLDEN["density"]
 
 
 @pytest.mark.slow
@@ -71,7 +71,7 @@ def test_array_golden_reference_recompute():
                                                np.ones((135, 180), bool))
     got = array_depth_metrics(np.asarray(sweep.depth), np.asarray(refined_depth),
                               np.asarray(sweep.valid), depths[12])
-    assert got == chip_smoke.ARRAY_GOLDEN
+    assert got == torch_records.ARRAY_GOLDEN
 
 
 def test_small_rig_matches_reference_route():

@@ -146,16 +146,16 @@ def test_calibrate_array_estimates_a_strong_lens(lensed, port_cfg):
 def test_reference_scale_record():
     """EVAL_SFM_r05.json's reference-scale row (scripts/make_sfm_eval_r05.py:
     62-76) and the calibrated depth of path (b) through the port on the CPU,
-    against chip_smoke's records and their bounds: the 5x5 rig at 270x360, a
+    against torch_records' records and their bounds: the 5x5 rig at 270x360, a
     k1 = -0.2, k2 = 0.03 lens, a 1 cm guess from default_rng(1)."""
-    import chip_smoke
+    import torch_records
 
-    got = chip_smoke.reference_scale_calibration(torch, "cpu")
+    got = torch_records.reference_scale_calibration(torch, "cpu")
     print("SFM_RECORD", got["calibration"], "CALIBRATED_DEPTH", got["depth"])
-    assert not chip_smoke.record_misses(got["calibration"], chip_smoke.SFM_RECORD,
-                                        chip_smoke.SFM_RECORD_TOL)
-    assert not chip_smoke.record_misses(got["depth"], chip_smoke.CALIBRATED_DEPTH,
-                                        chip_smoke.CALIBRATED_DEPTH_TOL)
+    assert not torch_records.record_misses(got["calibration"], torch_records.SFM_RECORD,
+                                        torch_records.SFM_RECORD_TOL)
+    assert not torch_records.record_misses(got["depth"], torch_records.CALIBRATED_DEPTH,
+                                        torch_records.CALIBRATED_DEPTH_TOL)
 
 
 def _reference_scale_jax():
@@ -179,13 +179,13 @@ def _reference_scale_jax():
 
 @pytest.mark.slow
 def test_calibrated_depth_reference_recompute():
-    """Recomputes chip_smoke.CALIBRATED_DEPTH with JAX on the CPU (a few
+    """Recomputes torch_records.CALIBRATED_DEPTH with JAX on the CPU (a few
     minutes): the reference-scale calibration, the 25 lensed views
     undistorted with its (k1, k2) as cli.py:174-182 does, then the array
     pipeline's kernel route (tests/test_torch_array_pipeline.py's
     _reference_route: plane_sweep_depth with backend="pallas_interpret" and
     the refine loop) at bench_array.py's CROSS config on the calibrated rig."""
-    import chip_smoke
+    import torch_records
     from stereovisionarray_tpu.config import EngineConfig as JaxEngine
     from stereovisionarray_tpu.geometry.distortion import undistort_image as jax_undistort
     from stereovisionarray_tpu_torch.evaluation import array_depth_metrics
@@ -195,10 +195,10 @@ def test_calibrated_depth_reference_recompute():
     k1, k2 = (float(k) for k in cal.distortion)
     views = jnp.stack([jax_undistort(dimgs[i], cal.cameras[i], JaxDistortion(k1=k1, k2=k2))[0]
                        for i in range(len(rig))])
-    cfg = JaxEngine().override(**chip_smoke.CALIBRATED_DEPTH_CFG)
+    cfg = JaxEngine().override(**torch_records.CALIBRATED_DEPTH_CFG)
     sweep, _, refined_depth = _reference_route(np.asarray(views), cal.cameras, cfg, 12,
                                                np.ones(views.shape[1:], bool))
     got = array_depth_metrics(np.asarray(sweep.depth), np.asarray(refined_depth),
                               np.asarray(sweep.valid), depths[12])
     print("CALIBRATED_DEPTH", got)
-    assert got == chip_smoke.CALIBRATED_DEPTH
+    assert got == torch_records.CALIBRATED_DEPTH

@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.config import CostConfig, SGMConfig
 from stereovisionarray_tpu.models import cascade as jcascade
 from stereovisionarray_tpu_torch.datasets.synthetic import large_range_pair
@@ -141,11 +141,11 @@ def test_rejects_the_reference_configs(total, fine, step, mode):
 def test_large_range_pair_is_perf_cascade_scene():
     import sys
 
-    sys.path.insert(0, str(chip_smoke.REPO / "scripts"))
+    sys.path.insert(0, str(torch_records.REPO / "scripts"))
     try:
         from perf_cascade import make_scene
     finally:
-        sys.path.remove(str(chip_smoke.REPO / "scripts"))
+        sys.path.remove(str(torch_records.REPO / "scripts"))
     for a, b in zip(large_range_pair(np.random.default_rng(0), 60, 96, margin=48),
                     make_scene(np.random.default_rng(0), 60, 96)):
         np.testing.assert_array_equal(a, b)
@@ -154,9 +154,9 @@ def test_large_range_pair_is_perf_cascade_scene():
 def test_cascade_golden_on_cpu():
     """The full-size two-view cascade on the CPU lands within
     CASCADE_GOLDEN_TOL of the reference's metrics."""
-    got = chip_smoke.two_view_cascade_metrics(torch, torch.device("cpu"))
-    want = chip_smoke.CASCADE_GOLDEN["two_view"]
-    for m, tol in chip_smoke.CASCADE_GOLDEN_TOL["two_view"].items():
+    got = torch_records.two_view_cascade_metrics(torch, torch.device("cpu"))
+    want = torch_records.CASCADE_GOLDEN["two_view"]
+    for m, tol in torch_records.CASCADE_GOLDEN_TOL["two_view"].items():
         assert abs(got[m] - want[m]) <= tol, (m, got)
 
 
@@ -164,12 +164,12 @@ def test_cascade_golden_on_cpu():
 def test_cascade_golden_reference_recompute():
     """Recomputes CASCADE_GOLDEN["two_view"] with JAX at full size
     (540x768, 256 disparities; about 40 s on a CPU)."""
-    left, right, gt, mask = large_range_pair(np.random.default_rng(0), *chip_smoke.CASCADE_SHAPE[:2])
-    cost, sgm, kw = chip_smoke.two_view_cascade_config(CostConfig, SGMConfig)
+    left, right, gt, mask = large_range_pair(np.random.default_rng(0), *torch_records.CASCADE_SHAPE[:2])
+    cost, sgm, kw = torch_records.two_view_cascade_config(CostConfig, SGMConfig)
     out = jcascade.cascade_two_view_disparity(jnp.asarray(left), jnp.asarray(right), cost, sgm,
                                               backend="pallas_interpret", **kw)
     got = cascade_disparity_metrics(np.asarray(out.disparity), gt, mask)
-    assert got == pytest.approx(chip_smoke.CASCADE_GOLDEN["two_view"], rel=0, abs=1e-7)
+    assert got == pytest.approx(torch_records.CASCADE_GOLDEN["two_view"], rel=0, abs=1e-7)
 
 
 # ---- float helpers against the JAX functions they replace ----------------------------------------

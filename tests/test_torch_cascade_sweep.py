@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.config import EngineConfig, PlaneSweepConfig, SGMConfig
 from stereovisionarray_tpu.datasets import SceneSpec as JaxScene
 from stereovisionarray_tpu.datasets import reference_rig as jax_rig
@@ -244,9 +244,9 @@ def test_rejects_bad_band_geometry(planes, fine, step, mode):
 def test_array_cascade_golden_on_cpu():
     """The full-size array cascade on the CPU lands within CASCADE_GOLDEN_TOL
     of the reference's metrics."""
-    got = chip_smoke.array_cascade_metrics(torch, torch.device("cpu"))
-    want = chip_smoke.CASCADE_GOLDEN["array"]
-    for m, tol in chip_smoke.CASCADE_GOLDEN_TOL["array"].items():
+    got = torch_records.array_cascade_metrics(torch, torch.device("cpu"))
+    want = torch_records.CASCADE_GOLDEN["array"]
+    for m, tol in torch_records.CASCADE_GOLDEN_TOL["array"].items():
         assert abs(got[m] - want[m]) <= tol, (m, got)
 
 
@@ -256,11 +256,11 @@ def test_array_cascade_golden_reference_recompute():
     270x360, 128 planes, CROSS; about 30 s on a CPU): the reference's
     cascade sweep on its kernel route and the refine loop of
     models/array_pipeline.py:243-273."""
-    rows, cols, h, w, planes = chip_smoke.ARRAY_SHAPE
+    rows, cols, h, w, planes = torch_records.ARRAY_SHAPE
     cams = jax_rig(rows=rows, cols=cols, spacing=0.05, resolution=(h, w))
     images, depths = jax_render(cams, (h, w), JaxScene())
     cfg = EngineConfig().override(**{"camera.rows": rows, "camera.cols": cols,
-                                     "plane_sweep.num_planes": planes, **chip_smoke.ARRAY_CASCADE})
+                                     "plane_sweep.num_planes": planes, **torch_records.ARRAY_CASCADE})
     ref, src = jap.reference_and_sources(cfg, rows * cols, None)
     ps = cfg.plane_sweep
     bo, _ = jcs.cascade_static_params(cams, ref, src, ps, ps.cascade_fine_planes)
@@ -282,4 +282,4 @@ def test_array_cascade_golden_reference_recompute():
                              subpixel=rc.subpixel, max_disparity=ceiling).disparity
     depth = jnp.where(sweep.valid, jax_d2z(refined, b0, f_px), 0.0)
     got = cascade_depth_metrics(np.asarray(depth), np.asarray(sweep.valid), depths[ref])
-    assert got == pytest.approx(chip_smoke.CASCADE_GOLDEN["array"], rel=0, abs=1e-7)
+    assert got == pytest.approx(torch_records.CASCADE_GOLDEN["array"], rel=0, abs=1e-7)

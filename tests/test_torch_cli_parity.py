@@ -2,7 +2,7 @@
 on the CPU, both run in-process on the same folder: the same flags and
 defaults (``--platform`` replaced by ``--device``), the same config JSON,
 the same rendered pixels and ground truth, and the same keys in every
-printed JSON line (those of chip_smoke.CLI_KEYS among them). The reference's
+printed JSON line (those of torch_records.CLI_KEYS among them). The reference's
 CPU run takes its XLA route and the port its plain twin of the kernel route,
 so their depth maps agree by scripts/check_tpu_parity.py:34-57's rule: at
 least 99% of the pixels valid in both within 0.5 px and at least 97% of the
@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu import cli as jax_cli
 from stereovisionarray_tpu_torch import cli
 from stereovisionarray_tpu_torch.datasets import load_array, load_image_gray, read_png
@@ -34,10 +34,10 @@ TWO_VIEW = ["--set", "cost.num_disparities=32", "--set", "sgm.num_paths=4",
 CALIBRATE = ["--set", "sfm.max_features=128", "--set", "sfm.ba_iterations=8",
              "--estimate-distortion"]
 # the calibration sits in a flat valley, so float order alone moves its
-# reprojection numbers (PR 12): held to chip_smoke's bound on the reference
+# reprojection numbers: held to torch_records' bound on the reference
 # scale's inlier reprojection, and its distortion to the bound on k1
-REPROJ_TOL = chip_smoke.SFM_RECORD_TOL["inlier_reproj_px"]
-K_TOL = chip_smoke.SFM_RECORD_TOL["k1"]
+REPROJ_TOL = torch_records.SFM_RECORD_TOL["inlier_reproj_px"]
+K_TOL = torch_records.SFM_RECORD_TOL["k1"]
 # fused depths agree within the fusion's own default agreement tolerance
 # (reconstruct --rel-thresh 0.01)
 FUSED_REL_TOL = 0.01
@@ -155,8 +155,8 @@ def test_printed_keys_are_the_references(runs, command):
     if command == "inspect":
         for name in ref:
             assert sorted(got[name]) == sorted(ref[name]), name
-    if command in chip_smoke.CLI_KEYS:  # the key sets chip_smoke holds the card's runs to
-        assert sorted(chip_smoke.CLI_KEYS[command]) == sorted(ref)
+    if command in torch_records.CLI_KEYS:  # the key sets the card suite holds its runs to
+        assert sorted(torch_records.CLI_KEYS[command]) == sorted(ref)
 
 
 def _agree(ref_d, ref_v, got_d, got_v, within):

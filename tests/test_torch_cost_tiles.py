@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.ops.cost_pallas import fused_cost_volume_pallas_wdh
 from stereovisionarray_tpu_torch import _native
 from stereovisionarray_tpu_torch.ops import cost_cuda
@@ -119,10 +119,10 @@ def test_tile_plan_at_the_main_paths(path):
     assert p.per_row == -(-args[1] // p.tile)
 
 
-def test_chip_smoke_rows_are_tiled_but_for_the_generic_one():
-    """chip_smoke.py's K1 rows: every path's is tiled, the last is the
+def test_card_suite_rows_are_tiled_but_for_the_generic_one():
+    """The card suite's K1 rows: every path's is tiled, the last is the
     generic form's."""
-    for row, (h, w, D), window, dtype in chip_smoke.K1_ROWS:
+    for row, (h, w, D), window, dtype in torch_records.K1_ROWS:
         p = _tile_plan(h, w, D, window, SIZES[dtype])
         assert (p is None) == row.startswith("generic"), row
 
@@ -134,8 +134,6 @@ def _launch_args(monkeypatch, left, right, D, window, bt_weight, dtype):
     monkeypatch.setattr(cost_cuda, "resolve_backend", lambda t, b: "cuda")
     monkeypatch.setattr(_native, "check", lambda *a: None)
     monkeypatch.setattr(_native, "launch", lambda name, device, *a: seen.append((name, a)))
-    # the launch count, restored after the test
-    monkeypatch.setattr(fused_cost_volume_cuda, "launches", fused_cost_volume_cuda.launches)
     out = fused_cost_volume_cuda(left, right, D, window, bt_weight, 32.0, dtype)
     (name, args), = seen
     assert name == "svt_cost_volume" and args[2] == out.data_ptr()

@@ -38,6 +38,11 @@ gives bit-identical runs and ignores TF32, and that the calibrated rig's
 depth (no synchronizing call; behind a spin on two views) and a rectified
 verged pair equal their plain routes; for the command line, that `two-view`
 and `depth` with --device cuda write the artifacts --device cpu writes.
+Each kernel also runs at every shape a path gives it (``torch_records``:
+the bench, entry, golden, cascade and array shapes, and the odd parity
+shapes 541x766 and 271x361). Which entry points a call launches is seen
+by a spy on ``_native.launch`` (``torch_launches.launched``); the paths,
+goldens, records and the CLI on the card are ``test_torch_card_paths.py``.
 
 Needs a CUDA device and nvcc; without one every test skips. The GPU machine
 has no JAX, so run these without the JAX-side conftest:
@@ -73,6 +78,8 @@ from stereovisionarray_tpu_torch.ops.sgm_cuda import (
     sweep_pair,
 )
 from stereovisionarray_tpu_torch.ops.sweep_cuda import plane_sweep_census
+from torch_launches import launched  # noqa: F401
+from torch_records import EXTRACT_ROWS, K1_ROWS, extraction_call, extraction_volume, render_head
 
 pytestmark = pytest.mark.gpu
 
@@ -117,6 +124,9 @@ def _same(got, want):
     (40, 768, 24, (7, 9), 0.25, "int8"),  # 8-byte runs: the cascade's fine pass
     (41, 766, 48, (7, 9), 0.0, "float32"),  # W % 4 != 0: staged a float at a time
     (20, 100, 47, (7, 9), 0.25, "int8"),  # 47 bytes a pixel: the generic form
+    # every shape a path gives K1, the odd parity shape and the generic form's
+    *((h, w, D, window, 0.25, dtype) for _, (h, w, D), window, dtype in K1_ROWS),
+    (540, 768, 64, (7, 9), 0.0, "int8"),  # the bench shape without BT
 ])
 def test_cost_volume_kernel(rng, h, w, D, window, bt_weight, dtype):
     img = np.floor(rng.uniform(0, 256, (h, w + 8))).astype(np.float32)
@@ -156,7 +166,7 @@ def test_cost_volume_entry_refuses(rng, tile, D):
 @pytest.mark.parametrize("dtype,hi", [("int8", 71), ("int16", 300)])
 @pytest.mark.parametrize("h,w,D", [(13, 37, 3), (11, 40, 32), (9, 21, 33), (16, 16, 64),
                                    (7, 30, 100), (5, 9, 129), (6, 11, 256), (1, 25, 20),
-                                   (24, 1, 20)])
+                                   (24, 1, 20), (540, 768, 64), (541, 766, 48)])
 def test_sgm_paths_kernel(rng, h, w, D, dtype, hi, num_paths):
     vol = _cuda(rng.integers(0, hi, (h, w, D)).astype(dtype))
     image = _cuda(np.floor(rng.uniform(0, 256, (h, w))).astype(np.float32))
@@ -167,7 +177,8 @@ def test_sgm_paths_kernel(rng, h, w, D, dtype, hi, num_paths):
 
 @pytest.mark.parametrize("uniqueness", [0.0, 0.95])
 @pytest.mark.parametrize("subpixel", [True, False])
-@pytest.mark.parametrize("h,w,D", [(12, 40, 16), (5, 7, 48), (3, 300, 3), (4, 130, 256)])
+@pytest.mark.parametrize("h,w,D", [(12, 40, 16), (5, 7, 48), (3, 300, 3), (4, 130, 256),
+                                   (540, 768, 64)])
 def test_extract_and_lr_gather_kernels(rng, h, w, D, subpixel, uniqueness):
     a = rng.integers(50, 400, (h, w, D)).astype(np.int16)
     a[0, :, 1] = a[0, :, D - 1] = 10  # exact tie: smallest d wins
@@ -199,6 +210,8 @@ def test_extract_and_lr_gather_kernels(rng, h, w, D, subpixel, uniqueness):
     (24, 23, False, 9, 27, 29, 7),
     (24, None, True, 5, 41, 53, 256),
     (24, None, False, 7, 13, 100, 1),
+    (4, None, False, 9, 270, 360, 128),  # the generic kernel at the array shape: patch 9
+    (24, 9, False, 5, 270, 360, 128),  # and top-9 of 24
 ])
 def test_plane_sweep_kernel(rng, S, topk, valid_mean, patch, h, w, D):
     """K8 on float (non-integer) images, with fractional, integer, zero and
@@ -237,7 +250,11 @@ def test_sgm_and_extract_kernels_on_a_plane_volume(rng, patch, dtype, num_paths)
 @pytest.mark.parametrize("k0,k1", [(-36, 36), (0, 23), (-49, 49), (-3, -3), (2, 9), (-12, 3)])
 @pytest.mark.parametrize("shape,axis,aux", [((540, 768), -1, True), ((33, 17), -1, False),
                                             ((4, 45, 61), -2, False), ((4, 45, 61), -1, False),
-                                            ((3, 1, 130), -1, True), ((2, 70, 1), -2, False)])
+                                            ((3, 1, 130), -1, True), ((2, 70, 1), -2, False),
+                                            # the two-view cascade's decode, the array
+                                            # cascade's pre-warp along rows and columns
+                                            ((540, 768), -1, False), ((4, 270, 360), -2, False),
+                                            ((4, 270, 360), -1, False)])
 def test_hat_sample_kernel(rng, shape, axis, aux, k0, k1):
     """K9 on float maps: t inside the range, on its integer taps, at its
     edges (partial weights) and far outside it."""
@@ -277,52 +294,51 @@ def test_float_sgm_kernel(rng, h, w, D, num_paths, order):
 
 @pytest.mark.parametrize("sweeps", [("down",), ("up",), ("lr",), ("rl",), ("down", "up"),
                                     ("lr", "rl"), ("up", "rl"), ("down", "up", "lr")])
-def test_float_sgm_kernel_sweep_subsets(rng, sweeps):
-    vol = _float_volume(rng, 19, 45, 48)
-    p2 = _cuda(rng.uniform(8.0, 32.0, (19, 45)).astype(np.float32))
+@pytest.mark.parametrize("h,w,D", [(19, 45, 48), (540, 768, 64), (541, 766, 48)])
+def test_float_sgm_kernel_sweep_subsets(rng, launched, h, w, D, sweeps):
+    """A sweep subset takes K7's generic form: the path scans, then the
+    ordered combine."""
+    vol = _float_volume(rng, h, w, D)
+    p2 = _cuda(rng.uniform(8.0, 32.0, (h, w)).astype(np.float32))
     call = lambda b: sgm_aggregate_float(vol, p2, p2, 4.0, 8, sweeps, "k7", b)  # noqa: E731
-    _same(call("cuda"), call("torch"))
+    got = call("cuda")
+    assert launched == ["svt_sgm_paths_f32", "svt_sgm_combine_f32"]
+    _same(got, call("torch"))
 
 
 @pytest.mark.parametrize("diagonals", [False, True])
-def test_k10_k11_k12_entry_points(rng, diagonals):
-    h, w, D = 21, 34, 40
+@pytest.mark.parametrize("h,w,D", [(21, 34, 40), (540, 768, 64)])
+def test_k10_k11_k12_entry_points(rng, launched, h, w, D, diagonals):
+    """K10 and K12 run K7's strip route (K2/K3 on int16), K12 then K6 with
+    the LR check; K11 the generic form's scans and one combine a sweep."""
     num_paths = 8 if diagonals else 4
     vol = _float_volume(rng, h, w, D)
     image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
     p2_y, p2_x = p2_maps((h, w), 32.0, torch.float32, vol.device, image, True, 8.0)
-    _same(sgm_aggregate_hwd(vol, 4.0, 32.0, num_paths, image, True, 8.0, "cuda"),
-          sgm_aggregate_hwd(vol, 4.0, 32.0, num_paths, image, True, 8.0, "torch"))
     q = torch.round(vol * 4).to(torch.int16)
-    _same(sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "cuda"),
-          sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, "torch"))
-    _same(sweep_pair(vol, p2_y, 4.0, diagonals, "cuda"), sweep_pair(vol, p2_y, 4.0, diagonals,
-                                                                     "torch"))
-    vt, pt = vol.transpose(0, 1).contiguous(), p2_x.t().contiguous()
-    _same(sweep_pair(vt, pt, 4.0, diagonals, "cuda"), sweep_pair(vt, pt, 4.0, diagonals, "torch"))
-    _same(sgm_extract_fused(vol, p2_y, p2_x, 4.0, num_paths, True, 0.95, 1.5, "cuda"),
-          sgm_extract_fused(vol, p2_y, p2_x, 4.0, num_paths, True, 0.95, 1.5, "torch"))
     qy, qx = p2_maps((h, w), 128, torch.int16, vol.device, image, True, 32)
-    _same(sgm_extract_fused(q, qy, qx, 16, num_paths, True, 0.95, 1.5, "cuda"),
-          sgm_extract_fused(q, qy, qx, 16, num_paths, True, 0.95, 1.5, "torch"))
-
-
-def test_k10_k12_count_only_their_own_launches(rng):
-    """K10 and K12 launch the K7/K6 kernels through their own wrappers: each
-    call adds one to its own count and none to K7's or K6's."""
-    h, w, D = 9, 20, 16
-    vol = _float_volume(rng, h, w, D)
-    p2 = _cuda(rng.uniform(8.0, 32.0, (h, w)).astype(np.float32))
-    fns = (sgm_aggregate_float, sgm_aggregate_hwd, sgm_extract_fused, extract_disparity_maps)
-    for fn in fns:
-        fn.launches = 0
-    sgm_aggregate_hwd(vol, backend="cuda")
-    sgm_extract_fused(vol, p2, p2, 4.0, 8, True, 0.95, 1.5, "cuda")
-    assert [fn.launches for fn in fns] == [0, 1, 1, 0]
+    vt, pt = vol.transpose(0, 1).contiguous(), p2_x.t().contiguous()
+    pair = ["svt_sgm_paths_f32", "svt_sgm_combine_f32", "svt_sgm_combine_f32"]
+    for call, entries in (
+            (lambda b: sgm_aggregate_hwd(vol, 4.0, 32.0, num_paths, image, True, 8.0, b),
+             ["svt_sgm_float_strips"]),
+            (lambda b: sgm_aggregate_hwd(q, 16, 128, num_paths, image, True, 32, b),
+             ["svt_sgm_paths"]),
+            (lambda b: sweep_pair(vol, p2_y, 4.0, diagonals, b), pair),
+            (lambda b: sweep_pair(vt, pt, 4.0, diagonals, b), pair),
+            (lambda b: sgm_extract_fused(vol, p2_y, p2_x, 4.0, num_paths, True, 0.95, 1.5, b),
+             ["svt_sgm_float_strips", "svt_extract_maps"]),
+            (lambda b: sgm_extract_fused(q, qy, qx, 16, num_paths, True, 0.95, 1.5, b),
+             ["svt_sgm_paths", "svt_extract_maps"])):
+        launched.clear()
+        got = call("cuda")
+        assert launched == entries
+        _same(got, call("torch"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8", "int16"])
-@pytest.mark.parametrize("h,w,D", [(12, 40, 16), (5, 7, 48), (3, 300, 3), (4, 130, 256)])
+@pytest.mark.parametrize("h,w,D", [(12, 40, 16), (5, 7, 48), (3, 300, 3), (4, 130, 256),
+                                   (540, 768, 64), (541, 766, 48)])
 def test_standalone_extraction_kernel(rng, h, w, D, dtype):
     """K6 over raw and aggregated volumes of every dtype, with ties, winners at
     both ends, costs above BIG, uniqueness, the LR check and a mask."""
@@ -365,7 +381,8 @@ def _volume(rng, h, w, D, dtype):
 @pytest.mark.parametrize("lr", [0.0, 1.5])
 @pytest.mark.parametrize("dtype", ["int8", "int16", "float32"])
 @pytest.mark.parametrize("h,w,D", [(6, 21, 8), (5, 10, 16), (7, 13, 3), (4, 130, 64),
-                                   (9, 768, 64), (3, 1100, 40), (2, 2500, 9)])
+                                   (9, 768, 64), (3, 1100, 40), (2, 2500, 9), (540, 768, 64),
+                                   (541, 766, 48)])
 def test_fused_extraction_kernel(rng, h, w, D, dtype, lr):
     """K4 with K5's LR check in the same launch, against the plain route:
     rows of 1 to 8 CTAs (a cluster), CTAs of more columns than threads, with
@@ -378,27 +395,11 @@ def test_fused_extraction_kernel(rng, h, w, D, dtype, lr):
         assert (got.disparity_right is None) != right
 
 
-@pytest.fixture
-def launched(monkeypatch):
-    """The C entry points launched through _native, in order."""
-    names = []
-    real = _native.launch
-
-    def spy(name, *args):
-        names.append(name)
-        return real(name, *args)
-
-    monkeypatch.setattr(_native, "launch", spy)
-    return names
-
-
 def test_k6_with_lr_is_one_launch(rng, launched):
     vol = _volume(rng, 12, 40, 16, "float32")
-    extract_disparity_maps.launches = lr_gather.launches = lr_gather.fused_launches = 0
     got = extract_disparity_maps(vol, True, 0.95, 1.5, "cuda")
     assert launched == ["svt_extract_maps"]
-    assert (extract_disparity_maps.launches, lr_gather.fused_launches, lr_gather.launches) == (
-        1, 1, 0)
+    assert launched.args[0][7] == 1.5  # the LR check inside that launch
     _same(got, extract_disparity_maps(vol, True, 0.95, 1.5, "torch"))
 
 
@@ -408,10 +409,9 @@ def test_integer_two_view_runs_no_standalone_lr_gather(rng, launched, dtype):
     left, right = _cuda(img[:, :64]), _cuda(img[:, 8:])
     cc = CostConfig(num_disparities=16, census_window=(5, 5), dtype=dtype)
     sc = SGMConfig(uniqueness=0.95, lr_max_diff=1.5)
-    extract_maps.launches = lr_gather.launches = lr_gather.fused_launches = 0
     got = two_view_disparity(left, right, cc, sc)
     assert launched.count("svt_extract_maps") == 1 and "svt_lr_gather" not in launched
-    assert (extract_maps.launches, lr_gather.fused_launches, lr_gather.launches) == (1, 1, 0)
+    assert launched.of("svt_extract_maps")[0][7] == 1.5  # the LR check inside that launch
     want = two_view_disparity(left, right, cc, sc, backend="torch")
     for field in ("disparity", "valid", "cost", "confidence"):
         _same(getattr(got, field), getattr(want, field))
@@ -487,6 +487,20 @@ def test_tiled_extraction_of_wrapped_int16_totals(rng, D):
     _extraction_cases(vol, 0.0)
 
 
+@pytest.mark.parametrize("row", [r[0] for r in EXTRACT_ROWS])
+def test_extraction_at_every_path_shape(rng, row):
+    """K4 (with and without the right map) and K6 on the volume each path
+    hands the extraction (the SGM totals of a seeded pair, raw int8 costs,
+    the float SGM total): the tiled form at every path's row, the generic
+    form at the last (float32, D = 256, LR)."""
+    _, kernel, (h, w, D), vtype, lr = next(r for r in EXTRACT_ROWS if r[0] == row)
+    vol = extraction_volume(torch, h, w, D, vtype)
+    assert _tile_plan(w, D, vol.element_size(), lr, lr).tiled == (row != "float32_d256_lr")
+    for right in ((False, True) if kernel == "K4" else (False,)):
+        call = extraction_call(extract_maps, extract_disparity_maps, kernel, vol, lr, right)
+        _same(call("cuda"), call("torch"))
+
+
 def test_extraction_entry_point_refuses_a_plan_it_does_not_take(rng):
     """svt_extract_maps checks the tile and stride it is handed."""
     h, w, D = 4, 300, 64
@@ -525,14 +539,17 @@ def test_hat_sample_vector_and_scalar_paths(rng, shape, aux, offset):
         _same(call("cuda"), call("torch"))
 
 
-@pytest.mark.parametrize("pad", [1, 9, 36])
+@pytest.mark.parametrize("margin", [3.0, 40.0])
+@pytest.mark.parametrize("pad", [1, 9, 36, 49])
 @pytest.mark.parametrize("shape", [(4, 45, 61), (4, 270, 360), (33, 17), (2, 7, 1),
                                    (1, 3, 13000)])
-def test_hat_sample_2d_kernel(rng, shape, pad):
+def test_hat_sample_2d_kernel(rng, shape, pad, margin):
     """The 2-D form against two K9 launches (along rows, then along columns)
-    and against its plain twin; W = 13000 opts into shared memory past 48 KB."""
+    and against its plain twin, t up to `margin` past the taps; W = 13000
+    opts into shared memory past 48 KB; (4, 270, 360) at pad 49 is the array
+    cascade's pre-warp."""
     values = _cuda(rng.uniform(0, 255, shape).astype(np.float32))
-    t_rows, t_cols = (_cuda(rng.uniform(-pad - 3.0, pad + 3.0, shape).astype(np.float32))
+    t_rows, t_cols = (_cuda(rng.uniform(-pad - margin, pad + margin, shape).astype(np.float32))
                       for _ in range(2))
     got = hat_sample_2d(values, t_rows, t_cols, -pad, pad, "cuda")
     two = hat_sample(hat_sample(values, t_rows, -pad, pad, axis=-2, backend="cuda"), t_cols,
@@ -541,11 +558,10 @@ def test_hat_sample_2d_kernel(rng, shape, pad):
     _same(got, hat_sample_2d(values, t_rows, t_cols, -pad, pad, "torch"))
 
 
-def test_hat_sample_2d_counts_and_refuses_wide_rows(rng):
+def test_hat_sample_2d_counts_and_refuses_wide_rows(rng, launched):
     v = _cuda(rng.uniform(0, 255, (2, 5, 9)).astype(np.float32))
-    hat_sample.launches = hat_sample_2d.launches = 0
     hat_sample_2d(v, v, v, -2, 2, "cuda")
-    assert (hat_sample.launches, hat_sample_2d.launches) == (0, 1)
+    assert launched == ["svt_hat_sample_2d"]
     wide = torch.zeros((1, 2, MAX_ROW_BYTES // 4 + 1), device="cuda")
     with pytest.raises(ValueError, match="at most"):
         hat_sample_2d(wide, wide, wide, -1, 1, "cuda")
@@ -574,11 +590,11 @@ def test_adaptive_p2_maps_do_not_wait_for_the_device(rng, dtype):
 # ---- K2/K3 redesigned: family walks into int16 buffers, no atomics ----------------------------
 
 @pytest.mark.parametrize("num_paths", [4, 8])
-@pytest.mark.parametrize("D", [3, 31, 32, 33, 64, 129, 256])
-def test_sgm_paths_kernel_int16_totals_that_wrap(rng, D, num_paths):
+@pytest.mark.parametrize("h,w,D", [*((7, 19, D) for D in (3, 31, 32, 33, 64, 129, 256)),
+                                   (540, 768, 64)])
+def test_sgm_paths_kernel_int16_totals_that_wrap(rng, h, w, D, num_paths):
     """int16 costs large enough that the 8-path int32 sum passes 32767: the
     int16 total is that sum wrapped, on the vector (D % 8 == 0) and scalar forms."""
-    h, w = 7, 19
     vol = _cuda(rng.integers(3000, 9000, (h, w, D)).astype(np.int16))
     image = _cuda(np.floor(rng.uniform(0, 256, (h, w))).astype(np.float32))
     p2_y, p2_x = p2_maps((h, w), 384, torch.int16, vol.device, image, True, 96)
@@ -590,7 +606,7 @@ def test_sgm_paths_kernel_int16_totals_that_wrap(rng, D, num_paths):
 
 @pytest.mark.parametrize("num_paths", [4, 8])
 @pytest.mark.parametrize("h,w,D", [(1, 40, 64), (33, 1, 64), (1, 1, 8), (2, 300, 16),
-                                   (300, 2, 24), (37, 29, 256)])
+                                   (300, 2, 24), (37, 29, 256), (540, 768, 256)])
 def test_sgm_paths_kernel_thin_and_deep(rng, h, w, D, num_paths):
     """Lines of length 1 and 2, lines of 300 steps, one pixel, D=256."""
     vol = _cuda(rng.integers(0, 71, (h, w, D)).astype(np.int8))
@@ -633,10 +649,10 @@ def test_k10_k12_integer_routes_on_the_new_scans(rng, num_paths):
               sgm_extract_fused(vol, qy, qx, 16, num_paths, True, 0.95, 1.5, "torch"))
 
 
-def test_integer_scans_launch_no_zero_fill_and_no_narrowing(rng):
+@pytest.mark.parametrize("h,w,D", [(20, 30, 64), (540, 768, 64)])
+def test_integer_scans_launch_no_zero_fill_and_no_narrowing(rng, h, w, D):
     """The wrapper's own work around the kernel: two allocations (the int16
     total and the partials) and one entry point; no zero-fill, no copy."""
-    h, w, D = 20, 30, 64
     vol = _cuda(rng.integers(0, 71, (h, w, D)).astype(np.int8))
     p2 = _cuda(np.full((h, w), 96, np.int16))
     sgm_aggregate_paths(vol, p2, p2, 8, 8)
@@ -651,10 +667,6 @@ def test_integer_scans_launch_no_zero_fill_and_no_narrowing(rng):
 
 # ---- K7 redesigned: the strip route (the down and up groups in row strips kept in L2) ----
 
-def _route_counts():
-    return sgm_aggregate_float.launches, sgm_aggregate_float.generic_launches
-
-
 def _strip_inputs(rng, h, w, D):
     vol = _float_volume(rng, h, w, D)
     image = _cuda(rng.uniform(0, 256, (h, w)).astype(np.float32))
@@ -666,30 +678,28 @@ def _strip_inputs(rng, h, w, D):
     (75, 20, 64, ORDERS),  # W = 20 < S = 32
 ])
 @pytest.mark.parametrize("num_paths", [4, 8])
-def test_float_sgm_strip_route(rng, h, w, D, orders, num_paths):
+def test_float_sgm_strip_route(rng, launched, h, w, D, orders, num_paths):
     """The strip route at the float paths' shapes and the parity shapes,
     bit-exact to the plain twin in every order given."""
     vol, p2_y, p2_x = _strip_inputs(rng, h, w, D)
     assert _strip_plan(h, w, D, num_paths, ALL_SWEEPS, True) is not None
     for order in orders:
-        before = _route_counts()
+        launched.clear()
         got = sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths, order=order, backend="cuda")
-        after = _route_counts()
-        assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+        assert launched == ["svt_sgm_float_strips"]
         _same(got, sgm_aggregate_float(vol, p2_y, p2_x, 8.0, num_paths, order=order,
                                        backend="torch"))
 
 
-def test_float_sgm_generic_form_where_the_plan_refuses(rng):
+def test_float_sgm_generic_form_where_the_plan_refuses(rng, launched):
     """D % 8 != 0 and a costs view 4 bytes off alignment take the generic form."""
     vol, p2_y, p2_x = _strip_inputs(rng, 30, 41, 60)
     storage = _float_volume(rng, 1, 1, 30 * 41 * 64 + 1).reshape(-1)
     for v in (vol, storage[1:].view(30, 41, 64)):
         py, px = (p2_y, p2_x)
-        before = _route_counts()
+        launched.clear()
         got = sgm_aggregate_float(v, py, px, 8.0, 8, backend="cuda")
-        after = _route_counts()
-        assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+        assert launched == ["svt_sgm_paths_f32", "svt_sgm_combine_f32"]
         _same(got, sgm_aggregate_float(v, py, px, 8.0, 8, backend="torch"))
 
 
@@ -763,22 +773,23 @@ def test_plane_sweep_kernel_topk_in_registers_and_in_shared_memory(rng, topk, pa
     _same(call("cuda"), call("torch"))
 
 
-@pytest.mark.parametrize("h,w,D", [(17, 29, 8), (45, 61, 13), (16, 28, 9), (33, 100, 17),
-                                   (1, 5, 3), (90, 3, 8),
-                                   # one either side of the strip (58, 60, 62 columns at
-                                   # patch 7, 5, 3, and twice that) and of the block's 16 and
-                                   # 24 rows
-                                   (15, 57, 8), (17, 59, 9), (23, 61, 8), (25, 63, 16),
-                                   (15, 115, 8), (17, 117, 5), (31, 119, 8), (33, 121, 8),
-                                   (47, 123, 8), (49, 125, 12)])
-def test_plane_sweep_kernel_ragged_tiles_and_wide_shifts(rng, h, w, D):
+@pytest.mark.parametrize("S,topk,h,w,D", [
+    *((4, None, h, w, D) for h, w, D in (
+        (17, 29, 8), (45, 61, 13), (16, 28, 9), (33, 100, 17), (1, 5, 3), (90, 3, 8),
+        # one either side of the strip (58, 60, 62 columns at patch 7, 5, 3, and
+        # twice that) and of the block's 16 and 24 rows
+        (15, 57, 8), (17, 59, 9), (23, 61, 8), (25, 63, 16), (15, 115, 8), (17, 117, 5),
+        (31, 119, 8), (33, 121, 8), (47, 123, 8), (49, 125, 12))),
+    (24, 6, 270, 360, 128),  # the to_center array shape
+])
+def test_plane_sweep_kernel_ragged_tiles_and_wide_shifts(rng, S, topk, h, w, D):
     """Shapes that are not multiples of the tile (a strip of 64 - 2M columns
     by 24 rows, 16 at patch 7, in the specialised kernel), planes that are
     not multiples of the chunk of 8, and shifts that move by more than a tile
     from plane to plane within one chunk."""
-    ref, src, shifts = _sweep_inputs(rng, 4, h, w, D, spread=70.0)
+    ref, src, shifts = _sweep_inputs(rng, S, h, w, D, spread=70.0)
     for patch in (3, 5, 7):
-        call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, None, b)  # noqa: E731
+        call = lambda b: plane_sweep_census(ref, src, shifts, patch, False, topk, b)  # noqa: E731
         _same(call("cuda"), call("torch"))
 
 
@@ -808,20 +819,24 @@ def test_plane_sweep_kernel_sign_of_difference(rng, values, patch, valid_mean, t
     _same(got, want)
 
 
-@pytest.mark.parametrize("fusion", ["rig", "mean"])
-@pytest.mark.parametrize("topology", ["CROSS", "to_center"])
-def test_plane_sweep_kernel_rig_shift_tables(rng, topology, fusion):
+@pytest.mark.parametrize("frames", ["8bit", "rendered"])
+@pytest.mark.parametrize("topology,fusion,patch,h,w,D", [
+    *((t, f, 5, 270, 360, 128) for t in ("CROSS", "to_center") for f in ("rig", "mean")),
+    ("CROSS", "rig", 3, 270, 360, 128), ("CROSS", "rig", 7, 270, 360, 128),
+    ("to_center", "rig", 5, 271, 361, 97),  # an odd shape, planes not a multiple of 8
+])
+def test_plane_sweep_kernel_rig_shift_tables(rng, topology, fusion, patch, h, w, D, frames):
     """The 5x5 rig's own translation shift tables at the array cells' size,
     270x360x128 (CROSS: 4 sources, to_center: 24), each in the rig's fusion
     (the ceiling-padded mean at CROSS, the mean of the 6 best at to_center)
-    and in the valid mean."""
+    and in the valid mean, at patch 3, 5 and 7 and at 271x361x97; on random
+    8-bit frames and on the rig's rendered (non-integer) views."""
     from stereovisionarray_tpu_torch import config
-    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig
+    from stereovisionarray_tpu_torch.datasets.synthetic import reference_rig, render_camera_array
     from stereovisionarray_tpu_torch.geometry import inverse_depth_samples
     from stereovisionarray_tpu_torch.models.array_pipeline import reference_and_sources
     from stereovisionarray_tpu_torch.models.plane_sweep import translation_shifts
 
-    h, w, D = 270, 360, 128
     cams = reference_rig(rows=5, cols=5, spacing=0.05, resolution=(h, w))
     cfg = config.EngineConfig().override(**{"camera.rows": 5, "camera.cols": 5,
                                             "plane_sweep.num_planes": D,
@@ -830,11 +845,12 @@ def test_plane_sweep_kernel_rig_shift_tables(rng, topology, fusion):
     ref_index, src_index = reference_and_sources(cfg, 25)
     depths = inverse_depth_samples(ps.z_near, ps.z_far, D)
     shifts = _cuda(translation_shifts(cams, ref_index, src_index, depths).swapaxes(0, 1))
-    images = np.round(rng.uniform(0, 255, (25, h, w))).astype(np.float32)  # 8-bit frames
+    images = (np.round(rng.uniform(0, 255, (25, h, w))).astype(np.float32) if frames == "8bit"
+              else render_camera_array(cams, (h, w))[0])
     ref, src = _cuda(images[ref_index]), _cuda(images[list(src_index)])
     S = len(src_index)
     topk = ps.topk if fusion == "rig" and ps.topk < S else None
-    call = lambda b: plane_sweep_census(ref, src, shifts, ps.patch, fusion == "mean",  # noqa: E731
+    call = lambda b: plane_sweep_census(ref, src, shifts, patch, fusion == "mean",  # noqa: E731
                                         topk, b)
     _same(call("cuda"), call("torch"))
 
@@ -1036,7 +1052,6 @@ def test_served_stages_do_not_wait(rng, stage):
     (which blocks the host by itself, as the refinement's do: ROADMAP.md
     queue 3), is held to no synchronizing call instead; detect_face and
     fit_landmarks, its two halves, take the spin."""
-    from chip_smoke import render_head
     from stereovisionarray_tpu_torch.models import temporal_init, temporal_update
     from stereovisionarray_tpu_torch.roi import (
         detect_face,

@@ -32,6 +32,7 @@ from stereovisionarray_tpu_torch.ops.extract_cuda import (
     lr_gather_plain,
 )
 from stereovisionarray_tpu_torch.ops.sgm_cuda import sgm_aggregate_float, sgm_aggregate_paths
+from torch_launches import launched  # noqa: F401
 
 H, W, D = 12, 40, 16
 
@@ -109,11 +110,11 @@ def test_lr_gather_bit_exact():
     assert (got.numpy()[:, :3] == BIG_FLOAT).any()  # sources left of the image
 
 
-def test_wrappers_run_plain_versions_on_cpu(total):
+def test_wrappers_run_plain_versions_on_cpu(total, launched):
     a = extract_maps(torch.from_numpy(total), True, 0.95)
     b = extract_maps_plain(torch.from_numpy(total), True, 0.95)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert extract_maps.launches == 0 and lr_gather.launches == 0
+    assert launched == []
 
 
 _LR_SHAPES = [(6, 21, 8), (5, 10, 16), (7, 13, 3)]  # W % 4 != 0; W < D; D = 3
@@ -155,7 +156,7 @@ def test_fused_lr_route_bit_exact_to_pallas(h, w, d, dtype, lr):
 
 
 @pytest.mark.parametrize("lr", [0.5, 1.5])
-def test_fused_lr_check_is_the_two_step_check(total, lr):
+def test_fused_lr_check_is_the_two_step_check(total, lr, launched):
     """The fused route's validity is the uniqueness validity and-ed with the
     test on K5's standalone gather; ``right`` only drops the right map."""
     t = torch.from_numpy(total)
@@ -171,7 +172,7 @@ def test_fused_lr_check_is_the_two_step_check(total, lr):
         if right:
             assert torch.equal(got.disparity_right, plain.disparity_right)
     assert not torch.equal(want, plain.valid)  # the check rejects some pixels here
-    assert extract_maps.launches == 0 and lr_gather.fused_launches == 0
+    assert launched == []
 
 
 def test_lr_width_limit():

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu_torch import _native
 from stereovisionarray_tpu_torch.ops import extract_cuda
 from stereovisionarray_tpu_torch.ops.extract_cuda import (
@@ -83,10 +83,10 @@ def test_tile_plan_at_the_main_paths(path):
     assert (p.per_row, p.cols) == (_ceil(args[0], 128), 128)  # a tile a CTA at these widths
 
 
-def test_chip_smoke_rows_are_tiled_but_for_the_generic_one():
-    """chip_smoke.py's extraction rows: each path's is tiled, the last
+def test_card_suite_rows_are_tiled_but_for_the_generic_one():
+    """The card suite's extraction rows: each path's is tiled, the last
     (float32, D = 256, LR) is the generic form's."""
-    for row, kernel, (h, w, D), vtype, lr in chip_smoke.EXTRACT_ROWS:
+    for row, kernel, (h, w, D), vtype, lr in torch_records.EXTRACT_ROWS:
         p = _tile_plan(w, D, SIZES[vtype], lr, lr)
         assert p.tiled == (row != "float32_d256_lr"), row
 

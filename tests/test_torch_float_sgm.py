@@ -21,6 +21,7 @@ from stereovisionarray_tpu_torch.ops.extract_cuda import (
     extract_disparity,
     extract_disparity_maps,
 )
+from torch_launches import launched  # noqa: F401
 
 H, W, D = 12, 16, 8
 P1, P2, P2_MIN = 4.0, 32.0, 8.0
@@ -227,16 +228,17 @@ def test_k6_disparity_with_mask_bit_exact_to_pallas(dtype, subpixel):
     np.testing.assert_allclose(got.confidence.numpy(), np.asarray(want.confidence), atol=1e-6)
 
 
-def test_wrappers_run_the_plain_twins_on_cpu(data):
+def test_wrappers_run_the_plain_twins_on_cpu(data, launched):
     vol, _ = data
     p2_y, p2_x = _maps(data, True)
     v = torch.from_numpy(vol)
     assert torch.equal(sgm_cuda.sgm_aggregate_float(v, p2_y, p2_x, P1),
                        port.aggregate_paths_float(v, p2_y, p2_x, P1))
     extract_disparity_maps(v, True, 0.95, 1.5)
-    for fn in (sgm_cuda.sgm_aggregate_float, sgm_cuda.sgm_aggregate_hwd, sgm_cuda.sweep_pair,
-               sgm_cuda.sgm_extract_fused, extract_disparity_maps):
-        assert fn.launches == 0
+    sgm_cuda.sgm_aggregate_hwd(v, P1, P2, 8)
+    sgm_cuda.sweep_pair(v, p2_y, P1)
+    sgm_cuda.sgm_extract_fused(v, p2_y, p2_x, P1)
+    assert launched == []
 
 
 def test_bad_orders_and_sweeps_are_refused(data):

@@ -36,7 +36,7 @@ GOLDEN = {
 }
 # its float32 route (float cost -> sgm_aggregate_pallas_hdw ->
 # extract_disparity_hdw), computed with JAX on the CPU at full size
-# (test_float_golden_is_the_reference_route recomputes it); chip_smoke.py's
+# (test_float_golden_is_the_reference_route recomputes it); torch_records'
 # FLOAT_GOLDEN
 FLOAT_GOLDEN = {"bad_2.0": 0.007297772914171219, "epe": 0.2934589385986328,
                 "density": 0.9592484831809998}

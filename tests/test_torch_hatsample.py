@@ -24,6 +24,7 @@ from stereovisionarray_tpu_torch.ops.hatsample import (
     hat_sample_2d_plain,
     hat_sample_plain,
 )
+from torch_launches import launched  # noqa: F401
 
 RTOL = ATOL = 1e-6
 
@@ -158,7 +159,7 @@ def test_2d_plain_twin_matches_reference_prewarp(pad, batch):
     np.testing.assert_array_equal(got, oracle)
 
 
-def test_2d_is_two_passes_and_validates():
+def test_2d_is_two_passes_and_validates(launched):
     values, t, _ = _inputs(7, 9, 14, -3, 3)
     t2 = np.roll(t, 1, axis=1)
     v, tr, tc = (torch.from_numpy(a) for a in (values, t, t2))
@@ -166,7 +167,7 @@ def test_2d_is_two_passes_and_validates():
     assert torch.equal(hat_sample_2d(v, tr, tc, -3, 3), two)
     assert torch.equal(hat_sample_2d(v, tr, tc, -3, 3, backend="torch"),
                        hat_sample_2d_plain(v, tr, tc, -3, 3))
-    assert hat_sample_2d.launches == 0
+    assert launched == []
     with pytest.raises(ValueError, match="CUDA tensor"):
         hat_sample_2d(v, tr, tc, -3, 3, backend="cuda")
     with pytest.raises(ValueError, match="shape"):

@@ -74,11 +74,15 @@ def test_array_slice_module_leaves_jax_out(jax_after_import, module):
 
 
 def test_no_source_file_imports_jax():
-    """Neither the port's modules nor chip_smoke.py import JAX or anything of
+    """Neither the port's modules nor what runs beside them on the card (the
+    records, the card suite, the kernel timings) import JAX or anything of
     the JAX package (config included: the port keeps its own copy)."""
+    card = [REPO / "tests" / f for f in ("torch_records.py", "torch_launches.py",
+                                         "test_torch_card_paths.py", "test_torch_cuda_kernels.py",
+                                         "test_torch_refine_cuda.py")]
     offenders = [
         str(path.relative_to(REPO))
-        for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+        for path in [*PKG.rglob("*.py"), *card, REPO / "scripts" / "perf_kernels.py"]
         for line in path.read_text().splitlines()
         if line.strip().startswith(("import jax", "from jax", "import stereovisionarray_tpu ",
                                     "import stereovisionarray_tpu.", "from stereovisionarray_tpu ",

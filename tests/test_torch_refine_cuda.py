@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from stereovisionarray_tpu_torch.ops import refine, refine_cuda
+from torch_launches import launched  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -79,8 +80,9 @@ def _inputs(bl, h, w, d_true=6.0, seed=0):
     return (cuda(ref), cuda(np.stack(aux)), cuda(disp), cuda(mask, torch.bool))
 
 
-def _both(ref, aux, bl, disp, mask, iterations=1, **kw):
-    """(fused outputs, plain outputs) after `iterations` passes each."""
+def _both(launched, ref, aux, bl, disp, mask, iterations=1, **kw):
+    """(fused outputs, plain outputs) after `iterations` passes each: the
+    fused route's two entry points a pass, the plain route's none."""
     def run(backend):
         d, out = disp, None
         for _ in range(iterations):
@@ -88,12 +90,12 @@ def _both(ref, aux, bl, disp, mask, iterations=1, **kw):
             d = out.disparity
         return out
 
-    before = refine_cuda.refine_pass.launches
+    launched.clear()
     fused = run("cuda")
-    assert refine_cuda.refine_pass.launches > before, "the fused route did not run"
-    before = refine_cuda.refine_pass.launches
+    assert launched == ["svt_refine_costs", "svt_refine_select"] * iterations, launched
+    launched.clear()
     plain = run("torch")
-    assert refine_cuda.refine_pass.launches == before, "the plain route launched the kernels"
+    assert launched == [], "the plain route launched the kernels"
     return fused, plain
 
 
@@ -132,20 +134,20 @@ def _same(fused, plain):
     ("cross", 1000, 8, 1.0, 1, 5, False),
     ("one_axis", 1, 56, 1.0, 3, 1, True),  # a single row without a window
 ])
-def test_fused_pass_is_the_plain_route(card, rig, h, w, step, radius, window, masked):
+def test_fused_pass_is_the_plain_route(card, launched, rig, h, w, step, radius, window, masked):
     bl = RIGS[rig]
     ref, aux, disp, mask = _inputs(bl, h, w, seed=h + radius)
-    fused, plain = _both(ref, aux, bl, disp, mask if masked else None,
+    fused, plain = _both(launched, ref, aux, bl, disp, mask if masked else None,
                          radius=radius, step=step, window=window, max_disparity=48.0)
     _same(fused, plain)
     assert bool(plain.valid.any()) and bool((plain.delta != 0).any())
 
 
 @pytest.mark.parametrize("rig,subpixel", [("cross", True), ("to_center", False)])
-def test_two_passes_are_the_plain_route(card, rig, subpixel):
+def test_two_passes_are_the_plain_route(card, launched, rig, subpixel):
     bl = RIGS[rig]
     ref, aux, disp, mask = _inputs(bl, 61, 83, seed=5)
-    fused, plain = _both(ref, aux, bl, disp, mask, iterations=2, radius=3,
+    fused, plain = _both(launched, ref, aux, bl, disp, mask, iterations=2, radius=3,
                          step=1.0, window=11, subpixel=subpixel, max_disparity=48.0)
     _same(fused, plain)
 
@@ -170,19 +172,21 @@ def _views(n, h, w):
     return np.stack([np.cos(a), np.sin(a)], 1) * (1.0 + (np.arange(n) % 3) / 2)[:, None]
 
 
-def test_widest_row_and_most_views_are_fused(card):
+def test_widest_row_and_most_views_are_fused(card, launched):
     w = _widest_row()
     assert 20000 < w < 40000
     bl = RIGS["one_diagonal"]
     ref, aux, disp, mask = _inputs(bl, 2, w)
-    _same(*_both(ref, aux, bl, disp, mask, radius=1, step=1.0, window=3, max_disparity=12.0))
+    _same(*_both(launched, ref, aux, bl, disp, mask, radius=1, step=1.0, window=3,
+                 max_disparity=12.0))
     bl = _views(63, 40, 56)
     ref, aux, disp, mask = _inputs(bl, 40, 56)
-    _same(*_both(ref, aux, bl, disp, mask, radius=2, step=1.0, window=5, max_disparity=24.0))
+    _same(*_both(launched, ref, aux, bl, disp, mask, radius=2, step=1.0, window=5,
+                 max_disparity=24.0))
 
 
 @pytest.mark.parametrize("case", ["one_column_more", "64_views", "one_row_window"])
-def test_refused_pass_raises_under_cuda_and_runs_plain_under_auto(card, case):
+def test_refused_pass_raises_under_cuda_and_runs_plain_under_auto(card, launched, case):
     h, w, bl = {"one_column_more": (2, _widest_row() + 1, RIGS["one_diagonal"]),
                 "64_views": (40, 56, _views(64, 40, 56)),
                 "one_row_window": (1, 56, RIGS["one_axis"])}[case]
@@ -191,14 +195,14 @@ def test_refused_pass_raises_under_cuda_and_runs_plain_under_auto(card, case):
     assert refine_cuda.refusal(len(bl), h, w, 3, _device()) is not None
     with pytest.raises(ValueError, match="refuse this pass"):
         refine.multiview_refine(ref, aux, bl, disp, backend="cuda", **kw)
-    before = refine_cuda.refine_pass.launches
+    launched.clear()
     with pytest.warns(RuntimeWarning, match="plain route"):
         got = refine.multiview_refine(ref, aux, bl, disp, **kw)
-    assert refine_cuda.refine_pass.launches == before
+    assert launched == []
     _same(got, refine.multiview_refine(ref, aux, bl, disp, backend="torch", **kw))
 
 
-def test_benchmark_configuration_is_the_frozen_reference(card):
+def test_benchmark_configuration_is_the_frozen_reference(card, launched):
     """array_depth_pipeline on a seeded frame-set of array5x5_cross (270x360,
     128 planes, CROSS, radius 5, window 21): its refined depth, depth and
     validity equal the frozen plain reference on the card, bit for bit."""
@@ -215,15 +219,16 @@ def test_benchmark_configuration_is_the_frozen_reference(card):
     cams = camera_array_from_numpy(*(rig[k] for k in ("fx", "fy", "cx", "cy", "R", "t")),
                                    device="cuda")
     cfg = EngineConfig.from_dict(config["engine"])
-    before = refine_cuda.refine_pass.launches
+    launched.clear()
     out = array_depth_pipeline(frames.to(torch.float32), cams, cfg)
-    assert refine_cuda.refine_pass.launches - before == 3
+    assert [n for n in launched if n.startswith("svt_refine")] == ["svt_refine_costs",
+                                                                   "svt_refine_select"]
     want = array_ref.depth(frames, rig, config["engine"])
     got = {"depth": out.depth, "refined_depth": out.refined_depth, "valid": out.valid}
     assert pipelines.mismatches(torch, got, want) == {k: 0 for k in want}
     assert not torch.equal(want["depth"], want["refined_depth"])
-    before = refine_cuda.refine_pass.launches
+    launched.clear()
     plain = array_depth_pipeline(frames.to(torch.float32), cams, cfg, backend="torch")
-    assert refine_cuda.refine_pass.launches == before
+    assert launched == []
     for field in ("refined_depth", "refined_disparity"):
         assert torch.equal(getattr(plain, field), getattr(out, field)), field

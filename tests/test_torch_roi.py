@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.config import EngineConfig
 from stereovisionarray_tpu.datasets import reference_rig as jax_rig
 from stereovisionarray_tpu.roi import detect as jd
@@ -111,7 +111,7 @@ def test_detect_face_ellipse_matches_reference(scene, invert):
 
 # the record's head scenes (both background polarities) and the narrow, wide
 # and tilted heads of tests/test_roi.py:325-329
-HEADS = ([(_render_head, case) for case in chip_smoke.FACE_CASES]
+HEADS = ([(_render_head, case) for case in torch_records.FACE_CASES]
          + [(_render_head_affine, case) for case in (
              dict(aspect=1.65), dict(aspect=1.05), dict(tilt=0.18), dict(aspect=1.6, tilt=-0.15))])
 
@@ -167,9 +167,9 @@ def test_resample_matches_scale_and_translate(scale, translation):
 
 
 def test_render_head_copy_equals_the_test_renderer():
-    for case in chip_smoke.FACE_CASES:
+    for case in torch_records.FACE_CASES:
         for seed in (0, 1):
-            got = chip_smoke.render_head(rng=np.random.default_rng(seed), **case)
+            got = torch_records.render_head(rng=np.random.default_rng(seed), **case)
             want = _render_head(rng=np.random.default_rng(seed), **case)
             assert all(np.array_equal(g, w) for g, w in zip(got, want))
 

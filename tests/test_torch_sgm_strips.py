@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu_torch import _native
 from stereovisionarray_tpu_torch.ops import sgm_cuda
 from stereovisionarray_tpu_torch.ops.sgm import (
@@ -271,9 +271,9 @@ def test_strip_plan_invariants(D):
         assert S == MAX_STRIP_ROWS or ring(2 * S) > STRIP_RING_BYTES
 
 
-def test_chip_smoke_strip_rows_have_a_plan():
-    """chip_smoke.py's strip-route parity shapes all take the strip route."""
-    for (h, w, D), orders in chip_smoke.K7_STRIP_ROWS:
+def test_card_suite_strip_rows_have_a_plan():
+    """The card suite's strip-route parity shapes all take the strip route."""
+    for (h, w, D), orders in torch_records.K7_STRIP_ROWS:
         assert orders and _strip_plan(h, w, D, 8, ALL_SWEEPS, True) is not None
 
 
@@ -286,10 +286,6 @@ def _launched(monkeypatch, vol, num_paths=8, sweeps=ALL_SWEEPS, order="k7", fn=N
     monkeypatch.setattr(_native, "check", lambda *a: None)
     monkeypatch.setattr(_native, "launch", lambda name, device, *args: seen.append((name, args)))
     monkeypatch.setattr(sgm_cuda, "resolve_backend", lambda t, b="auto": "cuda")
-    for wrapper in (sgm_cuda.sgm_aggregate_float, sgm_cuda.sgm_aggregate_hwd,
-                    sgm_cuda.sweep_pair, sgm_cuda.sgm_extract_fused):
-        for counter in [c for c in vars(wrapper) if c.endswith("launches")]:
-            monkeypatch.setattr(wrapper, counter, getattr(wrapper, counter))  # restored after
     h, w, _ = vol.shape
     p2 = torch.full((h, w), 32.0)
     if fn is None:
@@ -304,14 +300,10 @@ def _launched(monkeypatch, vol, num_paths=8, sweeps=ALL_SWEEPS, order="k7", fn=N
 def test_full_sweeps_launch_the_strip_route(monkeypatch, order, num_paths):
     h, w, D = 21, 40, 16
     vol = torch.zeros((h, w, D))
-    launches = (sgm_cuda.sgm_aggregate_float.launches,
-                sgm_cuda.sgm_aggregate_float.generic_launches)
     (name, args), = _launched(monkeypatch, vol, num_paths, order=order)
     assert name == "svt_sgm_float_strips"
     assert args[8:] == (h, w, D, 4.0, num_paths, ORDERS.index(order),
                         _strip_plan(h, w, D, num_paths, ALL_SWEEPS, True))
-    assert (sgm_cuda.sgm_aggregate_float.launches - launches[0],
-            sgm_cuda.sgm_aggregate_float.generic_launches - launches[1]) == (1, 0)
 
 
 @pytest.mark.parametrize("case", ["sweep_subset", "d_12", "unaligned"])
@@ -320,10 +312,8 @@ def test_the_rest_launch_the_generic_form(monkeypatch, case):
     base = torch.zeros(h * w * D + 1)
     vol = base[1:].view(h, w, D) if case == "unaligned" else base[:-1].view(h, w, D)
     sweeps = ("down", "lr") if case == "sweep_subset" else ALL_SWEEPS
-    generic = sgm_cuda.sgm_aggregate_float.generic_launches
     names = [n for n, _ in _launched(monkeypatch, vol, sweeps=sweeps)]
     assert names == ["svt_sgm_paths_f32", "svt_sgm_combine_f32"]
-    assert sgm_cuda.sgm_aggregate_float.generic_launches == generic + 1
 
 
 def test_k10_k12_take_the_strip_route_and_k11_the_generic_form(monkeypatch):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_records
 from stereovisionarray_tpu.models import temporal as jt
 from stereovisionarray_tpu_torch.models import temporal as tt
 from stereovisionarray_tpu_torch.ops.sgm import fma3, fmaf
@@ -112,6 +112,6 @@ def test_perturb_views_copy_equals_the_script():
     spec.loader.exec_module(script)
     views = np.random.default_rng(5).uniform(0, 255, (2, 40, 56)).astype(np.float32)
     for level in (0, 1, 2):
-        got = chip_smoke.perturb_views(views, level, np.random.default_rng(100 + level))
+        got = torch_records.perturb_views(views, level, np.random.default_rng(100 + level))
         want = script.perturb_views(views, level, np.random.default_rng(100 + level))
         assert np.array_equal(got, want), level
