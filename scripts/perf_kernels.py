@@ -13,7 +13,8 @@ larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 bounds it, and, for K5 and K9, one PyTorch library call that computes the
 same function. The shapes and scenes are ``tests/torch_records.py``'s: the
 two-view bench shape (540x768x64; int8, float32 for K6-K12), every K1 and
-K4 shape a path gives, the array cells' K8 and refinement passes
+K4 shape a path gives (K4 at KITTI's 375x1242x256 too, the kitti2015_sgm
+cells' shape), the array cells' K8 and refinement passes
 (270x360x128, CROSS and to_center), K2/K3 and K4 on the CROSS plane volume,
 K7 at the array's ZNCC shape, K9 at the cascades' shapes.
 
@@ -200,7 +201,7 @@ def main() -> None:
              rooflines.cost_volume(ch, cw, cd, window, rec.ELEMENT_BYTES[vtype]), row=row,
              window=list(window), dtype=vtype)
     for row, kernel, (eh, ew, ed), vtype, lr in rec.EXTRACT_ROWS:
-        if row not in ("two_view_flat_d256", "array_sgm"):
+        if row not in ("two_view_flat_d256", "two_view_kitti", "array_sgm"):
             continue
         volume = rec.extraction_volume(torch, eh, ew, ed, vtype)
         emit("K4 extract_maps", [eh, ew, ed],

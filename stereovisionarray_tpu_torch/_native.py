@@ -60,8 +60,8 @@ _SIGNATURES = {
     # num_paths, order, strip_rows, stream
     "svt_sgm_float_strips": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
     # total, total_bytes, h, w, n_disp, subpixel, uniqueness, lr_max_diff,
-    # tile, stride_words, disp_l, cost, valid, second, disp_r, stream
-    "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P, _P),
+    # form, tile, stride_words, disp_l, cost, valid, second, disp_r, stream
+    "svt_extract_maps": (_P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     # disp_l, disp_r, at, h, w, n_disp, stream
     "svt_lr_gather": (_P, _P, _P, _I, _I, _I, _P),
     # ref, src, shifts, fused, nviews, n_src, h, w, n_planes, patch, mode, topk, stream

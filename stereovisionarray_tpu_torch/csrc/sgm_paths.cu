@@ -196,26 +196,9 @@ struct alignas(4 * N) Words {
   uint32_t w[N];
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (BYTES == 16)  // through L2 only: the buffers are written by these kernels
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "n"(BYTES)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using svt::cp_async;
+using svt::cp_async_commit;
+using svt::cp_async_wait;
 
 template <int L, typename CostT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

@@ -26,9 +26,9 @@ bit-exact to the reference:
  - right-view candidates with x + d >= W and LR sources with x - d < 0 read
    BIG instead of an edge-clamped value.
 
-The extraction kernel stages a tile of a row's volume in shared memory
-before its per-pixel loop; :func:`_tile_plan` sizes the tile, and the launch
-hands the kernel its width and column stride.
+The extraction kernel stages a row's volume in shared memory before its
+per-pixel loops; :func:`_tile_plan` chooses the form and sizes its tile, and
+the launch hands the kernel both with the column stride.
 """
 
 from __future__ import annotations
@@ -50,46 +50,83 @@ VOLUME_DTYPES = (torch.int8, torch.int16, torch.float32)
 # cluster of at most 8 CTAs, 48 KB each
 MAX_LR_WIDTH = 8 * 12288
 LR_CTAS, LR_COLUMNS = 8, 128  # CTAs per row (a portable cluster), columns each aims for
-TILES = (128, 64, 32)  # columns (threads) per staged tile, widest first
+TILES = (128, 64, 32)  # the tiled form's columns (threads) per staged tile, widest first
+SPLIT_TILE = 32  # the split form's columns a ring slot (a quarter of its threads)
+RING = 2  # ring slots of a split CTA
 SMEM_LIMIT = 232448  # the 227 KB of shared memory an H100 block can use
+SM_SMEM, CTA_RESERVE = 233472, 1024  # an SM's 228 KB, and what the runtime keeps of it a CTA
+FORMS = ("generic", "tiled", "split")  # svt_extract_maps's form codes, in order
 
 
 class TilePlan(NamedTuple):
-    """One extraction launch: grid (per_row, H), `tile` threads a CTA."""
+    """One extraction launch: grid (per_row, H), `tile` threads a CTA (2 *
+    `tile` in the split form)."""
 
+    form: str  # one of FORMS
     per_row: int  # CTAs per row
     cols: int  # columns each CTA owns
-    tile: int  # C: columns staged and computed at once, one a thread
-    halo: int  # R: columns staged past the tile for the right view (D - 1, or 0)
-    stride_words: int  # P: a staged column's stride in 32-bit words, odd
-    smem_bytes: int  # the staged tile and, with the LR check, the CTA's d_R
-    tiled: bool  # False: no tile fits, the generic kernel reads the volume in place
+    tile: int  # C: columns staged and computed at once (0 in the generic form)
+    halo: int  # R: columns staged past the tile for the right view (tiled form: D - 1, or 0)
+    stride_words: int  # P: a staged column's stride in 32-bit words (odd; split: 4 x odd)
+    smem_bytes: int  # the staged tile(s), with the LR check the CTA's d_R, the split's partials
+
+
+def _two_ctas(smem: int) -> bool:
+    """Whether two CTAs of `smem` bytes share an SM."""
+    return 2 * (smem + CTA_RESERVE) <= SM_SMEM
 
 
 @functools.lru_cache(maxsize=256)
 def _tile_plan(w: int, n_disp: int, element_size: int, right_view: bool, lr: bool) -> TilePlan:
     """The extraction's launch plan for rows of `w` columns of `n_disp`
-    values of `element_size` bytes. A staged column takes P = ceil(D * size
-    / 4) | 1 words: P odd puts 32 lanes reading 32 consecutive columns at the
-    same d on 32 different banks. The tile is the widest of ``TILES`` whose
-    (C + R) * 4P bytes, and with the LR check the CTA's ``cols`` floats of
-    d_R, fit in ``SMEM_LIMIT``; without one the plan is not tiled.
+    values of `element_size` bytes.
 
-    With the LR check a row is one cluster of min(8, ceil(W / 128)) CTAs of
-    ceil(W / per_row) columns, each walking its columns a tile at a time;
-    without it a CTA owns one tile (the generic form: 128 columns)."""
-    halo = n_disp - 1 if right_view else 0
+    The tiled form stages C columns and, for the right view, R = D - 1 halo
+    columns past them, (C + R) * 4P bytes, and with the LR check the CTA's
+    ``cols`` floats of d_R; C is the widest of ``TILES`` that fits in
+    ``SMEM_LIMIT``. A staged column takes P = ceil(D * size / 4) | 1 words:
+    P odd puts 32 lanes reading 32 consecutive columns at the same d on 32
+    different banks. The halo grows with D: where the right view's tile at
+    C = 128 would leave an SM fewer than two CTAs (int16 at D = 256: 198 KB),
+    an integer volume runs the split form, which stages each column once,
+    into a ring of ``RING`` slots of C columns, and builds the right view
+    from each CTA's partial minima (``(cols + D - 1)`` 4-byte keys) joined
+    over the row's cluster, at C = ``SPLIT_TILE`` (at KITTI's 156 columns a
+    CTA a 64-column slot would leave 36 columns of its last tile idle; 36
+    KB, six CTAs an SM). Its left view reads a
+    column 16 bytes at a time, 8 lanes of a warp at once, so a column takes
+    P = 4 * (ceil(D * size / 16) | 1) words: 16-byte aligned, and the 8
+    lanes on 32 different banks. float32 volumes keep the tiled form. Where
+    nothing fits, the generic form reads the volume in place.
+
+    With the LR check, and in the split form, a row is one cluster of
+    min(8, ceil(W / 128)) CTAs of ceil(W / per_row) columns, each walking its
+    columns a tile at a time; otherwise a CTA owns one tile (the generic
+    form: 128 columns)."""
     stride_words = -(-n_disp * element_size // 4) | 1
-    per_row = min(LR_CTAS, -(-w // LR_COLUMNS)) if lr else -(-w // LR_COLUMNS)
+    cluster = min(LR_CTAS, -(-w // LR_COLUMNS))
+    cluster_cols = -(-w // cluster)
+    row_r = cluster_cols * 4 if lr else 0
+    if right_view:
+        halo = n_disp - 1
+        tiled = (TILES[0] + halo) * 4 * stride_words + row_r
+        if element_size < 4 and not _two_ctas(tiled):
+            chunk_words = 4 * (-(-n_disp * element_size // 16) | 1)
+            split = RING * SPLIT_TILE * 4 * chunk_words + row_r + (cluster_cols + halo) * 4
+            if split <= SMEM_LIMIT:
+                return TilePlan("split", cluster, cluster_cols, SPLIT_TILE, 0, chunk_words,
+                                split)
+    else:
+        halo = 0
+    per_row = cluster if lr else -(-w // LR_COLUMNS)
     cols = -(-w // per_row)
-    row_r = cols * 4 if lr else 0
     for tile in TILES:
         smem = (tile + halo) * 4 * stride_words + row_r
         if smem <= SMEM_LIMIT:
             if not lr:
                 per_row, cols = -(-w // tile), tile
-            return TilePlan(per_row, cols, tile, halo, stride_words, smem, True)
-    return TilePlan(per_row, cols, 0, halo, stride_words, row_r, False)
+            return TilePlan("tiled", per_row, cols, tile, halo, stride_words, smem)
+    return TilePlan("generic", per_row, cols, 0, halo, stride_words, row_r)
 
 
 class ExtractMaps(NamedTuple):
@@ -191,8 +228,7 @@ def _launch_maps(total: torch.Tensor, subpixel: bool, uniqueness: float, lr_max_
     """One launch of the extraction kernel on an int8/int16/float32 volume,
     the LR check in it when ``lr_max_diff > 0``. Without `right` the right
     map stays out of HBM (``disparity_right`` None), and without the LR check
-    the right view is skipped. The tiled kernel runs where
-    :func:`_tile_plan` fits a tile, the generic one (tile 0) elsewhere."""
+    the right view is skipped, in the form :func:`_tile_plan` chooses."""
     h, w, D = total.shape
     _native.check(total, "total", total.dtype, (h, w, D))
     lr = lr_max_diff > 0
@@ -206,8 +242,9 @@ def _launch_maps(total: torch.Tensor, subpixel: bool, uniqueness: float, lr_max_
     _native.launch(
         "svt_extract_maps", total.device, total.data_ptr(), total.element_size(), h, w, D,
         int(bool(subpixel)), float(uniqueness) if uniqueness > 0.0 else 0.0,
-        float(lr_max_diff) if lr else 0.0, plan.tile, plan.stride_words, disp.data_ptr(),
-        cost.data_ptr(), valid.data_ptr(), second.data_ptr(), disp_r.data_ptr() if right else None,
+        float(lr_max_diff) if lr else 0.0, FORMS.index(plan.form), plan.tile, plan.stride_words,
+        disp.data_ptr(), cost.data_ptr(), valid.data_ptr(), second.data_ptr(),
+        disp_r.data_ptr() if right else None,
     )
     return ExtractMaps(disp, cost, valid, second, disp_r)
 

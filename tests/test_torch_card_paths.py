@@ -13,7 +13,8 @@ the records of the JAX package on the card; every CLI subcommand.
 - the cascades: the two-view cascade at 540x768, 256 disparities (int8),
   on its large-range scene, and the array cascade at the CROSS shape, in
   smooth and band mode, the array pre-warp one 2-D K9 launch;
-- every extraction and cost volume a path launches is the tiled form;
+- every extraction and cost volume a path launches stages its rows in shared
+  memory (never the generic form);
 - the served loop (stream_depth_maps, the chunked loop with the temporal
   filter) over eight CROSS frame-sets from PNGs, against direct calls;
   use_roi in both modes, on a served set and on a head scene;
@@ -47,6 +48,7 @@ import torch
 import torch_records as rec
 from stereovisionarray_tpu_torch import cli, config
 from stereovisionarray_tpu_torch.models import array_depth_pipeline, two_view_disparity
+from stereovisionarray_tpu_torch.ops.extract_cuda import FORMS
 from torch_launches import launched  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -93,10 +95,12 @@ def _extractions(launched):
     return [args[7] > 0 for args in launched.of("svt_extract_maps")]
 
 
-def _tiled(launched):
-    """Every extraction and cost volume launched is the tiled form (a tile
-    of the row in shared memory), never the generic one."""
-    assert all(args[8] > 0 for args in launched.of("svt_extract_maps")), launched.args
+def _staged(launched):
+    """Every extraction and cost volume launched stages the row in shared
+    memory (the extraction's tiled or split form, the cost volume's tiled
+    form), never the generic form."""
+    assert all(FORMS[args[8]] != "generic" for args in launched.of("svt_extract_maps")), \
+        launched.args
     assert all(args[13] > 0 for args in launched.of("svt_cost_volume")), launched.args
 
 
@@ -134,7 +138,7 @@ def test_two_view_path(card, launched, run, dtype):
     out = two_view_disparity(*pair, cc, sc)
     assert set(launched) == entries, launched
     assert _extractions(launched) == [True]
-    _tiled(launched)
+    _staged(launched)
     _same(out, two_view_disparity(*pair, cc, sc, backend="torch"), TWO_VIEW_FIELDS)
     assert bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
     assert tuple(out.disparity.shape) == (h, w)
@@ -155,7 +159,7 @@ def test_array_path(card, launched, rig, topology):
     out = array_depth_pipeline(images, cams, cfg)
     assert set(launched) == ARRAY, launched
     assert (launched.count("svt_refine_costs"), launched.count("svt_refine_select")) == (1, 1)
-    _tiled(launched)
+    _staged(launched)
     plain = array_depth_pipeline(images, cams, cfg, backend="torch")
     _same(out, plain, FIELDS)
     _same(out.sweep, plain.sweep, SWEEP_FIELDS)
@@ -203,7 +207,7 @@ def test_float_array_path(card, launched, rig, run):
         entries = {"svt_plane_sweep", "svt_extract_maps"}
     out = call("auto")
     assert set(launched) == entries, launched
-    _tiled(launched)
+    _staged(launched)
     plain = call("torch")
     if run == "array_zncc":
         _same(out, plain, FIELDS)
@@ -227,7 +231,7 @@ def test_two_view_cascade(card, launched, mode):
     assert ("svt_hat_sample" in launched) or mode == "band"
     ext = _extractions(launched)
     assert len(ext) == 2 and any(ext), ext  # coarse and fine, the LR check inside
-    _tiled(launched)
+    _staged(launched)
     plain = rec.two_view_cascade_run(left, right, mode, backend="torch")
     _same(out, plain, (*TWO_VIEW_FIELDS, "coarse_disparity", "band_offset"))
     assert bool(torch.isfinite(out.disparity).all() and torch.isfinite(out.cost).all())
@@ -245,7 +249,7 @@ def test_array_cascade(card, launched, rig, mode):
     assert ARRAY <= set(launched), launched
     assert launched.count("svt_hat_sample") == 0
     assert launched.count("svt_hat_sample_2d") == (mode == "smooth")
-    _tiled(launched)
+    _staged(launched)
     plain = array_depth_pipeline(images, cams, cfg, backend="torch")
     _same(out, plain, FIELDS)
     _same(out.sweep, plain.sweep, SWEEP_FIELDS)
@@ -341,7 +345,7 @@ def test_served_path(card, launched, served):
     chunked = list(stream_depth_maps_chunked(iter(stacks), cams, cfg, depth=2, chunk=4,
                                              temporal=params, device="cuda"))
     assert {"svt_plane_sweep", "svt_sgm_paths", "svt_extract_maps"} <= set(launched)
-    _tiled(launched)
+    _staged(launched)
     assert [r.index for r in got] == [r.index for r in chunked] == list(range(len(stacks)))
     direct = [array_depth_pipeline(torch.from_numpy(st).cuda(), cams, cfg) for st in stacks]
     for results in (got, chunked):
@@ -456,7 +460,7 @@ def test_calibrated_depth_path(calibration, launched):
     out = array_depth_pipeline(views, cams, cfg, ref_index=ref)
     assert {"svt_sgm_paths", "svt_extract_maps"} <= set(launched), launched
     assert "svt_plane_sweep" not in launched
-    _tiled(launched)
+    _staged(launched)
     plain = array_depth_pipeline(views, cams, cfg, ref_index=ref, backend="torch")
     _same(out, plain, FIELDS)
     _same(out.sweep, plain.sweep, ("plane", "cost", "num_views", "confidence"))
@@ -472,7 +476,7 @@ def test_rectified_two_view_path(card, launched):
     out, depth, lvalid, rect = rec.rectified_two_view(cams, left, right, cfg)
     assert TWO_VIEW <= set(launched) and "svt_lr_gather" not in launched, launched
     assert _extractions(launched) == [True]
-    _tiled(launched)
+    _staged(launched)
     plain = rec.rectified_two_view(cams, left, right, cfg, backend="torch")
     _same(out, plain[0], TWO_VIEW_FIELDS)
     _same(depth, plain[1])
@@ -576,7 +580,7 @@ def test_cli_depth(cli_data, launched, run):
     needed = {"svt_plane_sweep", "svt_sgm_paths", "svt_extract_maps"} | (
         {"svt_hat_sample_2d"} if run == "cascade" else set())
     assert needed <= set(launched), launched
-    _tiled(launched)
+    _staged(launched)
     cfg = _cli_config(["depth", "--input", ".", *extra])
     if run == "cascade":
         cfg = cfg.override(**{"plane_sweep.cascade": True})
@@ -651,7 +655,7 @@ def test_cli_two_view(cli_data, launched, run):
     assert needed <= set(launched), launched
     if run != "cascade":
         assert "svt_lr_gather" not in launched and _extractions(launched) == [True]
-    _tiled(launched)
+    _staged(launched)
     check = Artifacts(scratch)
     check.arrays(out_dir / "two_view.npz", {"disparity": out.disparity, "valid": out.valid,
                                             "confidence": out.confidence})
@@ -739,7 +743,7 @@ def test_cli_reconstruct(cli_data, launched):
     out_dir = scratch / "reconstruct"
     _cli(["reconstruct", "--input", str(data), "--output", str(out_dir), *rec.CLI_ARRAY])
     assert {"svt_plane_sweep", "svt_sgm_paths", "svt_extract_maps"} <= set(launched), launched
-    _tiled(launched)
+    _staged(launched)
     cfg = _cli_config(["reconstruct", "--input", ".", *rec.CLI_ARRAY])
     cams = cli._rig_from_config(cfg, tuple(images.shape[1:])).to("cuda")
     views = tuple(range(len(images)))
@@ -775,7 +779,7 @@ def test_cli_serve(cli_data, served, launched):
     line = _cli(["serve", *dirs, "--output", str(out_dir), "--chunk", "4", "--temporal",
                  *rec.CLI_ARRAY])
     assert {"svt_plane_sweep", "svt_sgm_paths", "svt_extract_maps"} <= set(launched), launched
-    _tiled(launched)
+    _staged(launched)
     assert line["frames"] == len(dirs)
     cfg = _cli_config(["serve", ".", *rec.CLI_ARRAY])
     h, w = images.shape[1:]

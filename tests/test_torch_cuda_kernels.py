@@ -24,10 +24,12 @@ int8 and int16 volumes with uniqueness and LR; the extraction kernel with
 the LR check fused (K4 with K5's check) over the three dtypes and every
 cluster width, K6 with LR in one launch, and the integer two-view path with
 no standalone K5; the extraction's tiled form at the main paths' shapes
-(540x768x256 int16 with LR, the array's 270x360x128 without the right view),
-on its narrower tiles and in its element staging (an offset view, D = 97),
-on wrapped int16 totals, its generic form (float32, D = 256, LR), and the
-entry point's refusal of a tile or stride it does not take; the cost
+(the array's 270x360x128 without the right view), on its narrower tiles and
+in its element staging (an offset view, D = 97), on wrapped int16 totals,
+its split form (540x768x256 and KITTI's 375x1242x256 int16 with LR; W < D,
+tiles that do not divide a CTA's columns, windows over 3 and 4 CTAs, int8
+at D = 384, element staging), its generic form (float32, D = 256, LR), and
+the entry point's refusal of a form, tile or stride it does not take; the cost
 volume's tiled form at the main paths' shapes (C = 256, 128, 64; 8- and
 16-byte runs; the cascade's 5x7 census; images not 16-byte aligned), its
 generic form (47 bytes a pixel), and the entry point's refusals; for the
@@ -60,6 +62,7 @@ from stereovisionarray_tpu_torch.models.two_view import two_view_disparity
 from stereovisionarray_tpu_torch.ops.cost_cuda import _tile_plan as cost_tile_plan
 from stereovisionarray_tpu_torch.ops.cost_cuda import fused_cost_volume_cuda
 from stereovisionarray_tpu_torch.ops.extract_cuda import (
+    FORMS,
     MAX_LR_WIDTH,
     _tile_plan,
     extract_disparity,
@@ -434,12 +437,48 @@ def _extraction_cases(vol, lr, rights=(False, True)):
 
 
 def test_tiled_extraction_at_d256_with_lr(rng):
-    """The flat two-view cascade's extraction: 198 KB of shared memory a CTA,
-    a 6-CTA cluster a row."""
+    """The flat two-view cascade's extraction: the split form (its halo tile
+    would take 198 KB), a 6-CTA cluster a row, 36 KB a CTA."""
     vol = _volume(rng, 540, 768, 256, "int16")
     plan = _tile_plan(768, 256, 2, True, True)
-    assert plan.tiled and plan.per_row == 6 and plan.smem_bytes > 190_000
+    assert plan.form == "split" and plan.per_row == 6 and plan.smem_bytes < 40_000
     _extraction_cases(vol, 1.5)
+
+
+@pytest.mark.parametrize("lr", [0.0, 1.5])
+@pytest.mark.parametrize("dtype,D", [("int16", 256), ("int16_wrapped", 256), ("int16", 255),
+                                     ("int8", 384)])
+@pytest.mark.parametrize("h,w", [
+    (3, 100),  # W < D: a cluster of one CTA
+    (4, 300),  # 3 CTAs of 100 columns (three tiles of 32 and one of 4), windows over 3 CTAs
+    (3, 1000),  # 8 CTAs of 125 columns, windows over 4 CTAs
+    (3, 1242),  # KITTI's width: 156 columns a CTA, four tiles of 32 and one of 28
+])
+def test_split_extraction_kernel(rng, h, w, dtype, D, lr):
+    """The split form (staged once, right view from partial keys joined over
+    the row's cluster) against the plain route, with and without the right
+    map and the LR check: int16 at D = 256 (an 8-path total that wrapped
+    too, and D = 255, staged an element a thread), int8 at D = 384."""
+    if dtype == "int16_wrapped":
+        vol = _cuda(rng.integers(-32768, 32768, (h, w, D)).astype(np.int16))
+    else:
+        vol = _volume(rng, h, w, D, dtype)
+    plan = _tile_plan(w, D, vol.element_size(), True, lr > 0)
+    assert plan.form == "split" and plan.per_row == min(8, -(-w // 128))
+    _extraction_cases(vol, lr)
+
+
+def test_split_extraction_of_an_offset_view(rng):
+    """The split form on a view one element into its buffer: not 4-byte
+    aligned, so it stages an element a thread."""
+    h, w, D = 3, 700, 256
+    vol = _volume(rng, h, w, D, "int16")
+    buf = torch.empty(h * w * D + 1, dtype=vol.dtype, device=vol.device)
+    view = buf[1:].view(h, w, D)
+    view.copy_(vol)
+    assert view.data_ptr() % 4 != 0 and _tile_plan(w, D, 2, True, True).form == "split"
+    _extraction_cases(view, 1.5)
+    _extraction_cases(view, 0.0)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "int16", "float32"])
@@ -495,30 +534,41 @@ def test_extraction_at_every_path_shape(rng, row):
     form at the last (float32, D = 256, LR)."""
     _, kernel, (h, w, D), vtype, lr = next(r for r in EXTRACT_ROWS if r[0] == row)
     vol = extraction_volume(torch, h, w, D, vtype)
-    assert _tile_plan(w, D, vol.element_size(), lr, lr).tiled == (row != "float32_d256_lr")
+    form = _tile_plan(w, D, vol.element_size(), lr, lr).form
+    assert (form == "generic") == (row == "float32_d256_lr")
     for right in ((False, True) if kernel == "K4" else (False,)):
         call = extraction_call(extract_maps, extract_disparity_maps, kernel, vol, lr, right)
         _same(call("cuda"), call("torch"))
 
 
 def test_extraction_entry_point_refuses_a_plan_it_does_not_take(rng):
-    """svt_extract_maps checks the tile and stride it is handed."""
+    """svt_extract_maps checks the form, tile and stride it is handed."""
     h, w, D = 4, 300, 64
     vol = _volume(rng, h, w, D, "int16")
     out = [torch.empty((h, w), dtype=torch.float32, device="cuda") for _ in range(4)]
     valid = torch.empty((h, w), dtype=torch.bool, device="cuda")
 
-    def launch(tile, stride_words, lr=1.5):
-        _native.launch("svt_extract_maps", vol.device, vol.data_ptr(), 2, h, w, D, 1, 0.95, lr,
-                       tile, stride_words, out[0].data_ptr(), out[1].data_ptr(), valid.data_ptr(),
-                       out[2].data_ptr(), out[3].data_ptr())
+    def launch(form, tile, stride_words, lr=1.5, right=True, total=vol, size=2):
+        _native.launch("svt_extract_maps", vol.device, total.data_ptr(), size, h, w, D, 1, 0.95,
+                       lr, FORMS.index(form) if isinstance(form, str) else form, tile,
+                       stride_words, out[0].data_ptr(), out[1].data_ptr(), valid.data_ptr(),
+                       out[2].data_ptr(), out[3].data_ptr() if right else None)
 
     plan = _tile_plan(w, D, 2, True, True)
-    launch(plan.tile, plan.stride_words)
-    launch(0, plan.stride_words)  # the generic form
-    for tile, stride_words in ((96, 33), (128, 31), (128, 20000), (256, 33)):
+    launch(plan.form, plan.tile, plan.stride_words)
+    launch("generic", 0, plan.stride_words)
+    launch("split", 32, 36)  # the split form takes any integer right view
+    launch("split", 32, 36, lr=0.0)
+    f32 = vol.to(torch.float32)
+    for form, tile, stride_words, kw in (
+            ("tiled", 96, 33, {}), ("tiled", 128, 31, {}), ("tiled", 128, 20000, {}),
+            ("tiled", 256, 33, {}), ("split", 64, 36, {}), ("split", 32, 28, {}),
+            ("split", 32, 33, {}),  # a staged column off 16 bytes
+            ("split", 32, 36, dict(lr=0.0, right=False)),  # no right view to split
+            ("split", 32, 68, dict(total=f32, size=4)),  # float32 volumes keep the tiled form
+            (3, 64, 33, {}), (-1, 64, 33, {})):
         with pytest.raises(RuntimeError, match="svt_extract_maps"):
-            launch(tile, stride_words)
+            launch(form, tile, stride_words, **kw)
     torch.cuda.synchronize()
 
 

@@ -84,6 +84,7 @@ EXTRACT_ROWS = (
     ("two_view_entry", "K4", (256, 384, 64), "int16", True),
     ("two_view_float32", "K6", (540, 768, 64), "float32", True),
     ("two_view_flat_d256", "K4", (540, 768, 256), "int16", True),
+    ("two_view_kitti", "K4", (375, 1242, 256), "int16", True),  # the kitti2015_sgm cells
     ("array_sgm", "K4", (270, 360, 128), "int16", False),
     ("array_no_sgm", "K6", (270, 360, 128), "int8", False),
     ("array_zncc", "K6", (270, 360, 128), "float32", False),
